@@ -3,9 +3,15 @@
     python -m onix_torch.cli score <date> <flow|dns|proxy> [--tol T]
         [--max-results N] [-c CONFIG] [-s KEY.PATH=VALUE ...]
         [--device cuda|cpu]
+    python -m onix_torch.cli serve [--port P] [--host H]
+        [--models-dir DIR] [--bank-capacity C] [-c CONFIG]
+        [-s KEY.PATH=VALUE ...] [--device cuda|cpu]
 
-The `onix score` subcommand of `onix/cli.py` on the port. The device
-defaults to the card; `--device cpu` runs on the CPU. The reference's
+The `onix score` and `onix serve` subcommands of `onix/cli.py` on the
+port. `score -s serving.save_fitted=true` persists the day's model
+under serving.models_dir; `serve` answers `POST /score` from a model
+bank on the device (`onix_torch/oa/serve.py`). The device defaults to
+the card; `--device cpu` runs on the CPU. The reference's
 `--engine svi|sharded`, `--fault-inject` and `--fault-plan` are
 accepted and raise NotImplementedError until their slices are ported.
 """
@@ -19,6 +25,17 @@ from onix_torch import not_ported
 from onix_torch.config import load_config
 
 
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--config", "-c", default=None,
+                   help="YAML/JSON config file")
+    p.add_argument("--set", "-s", action="append", default=[],
+                   metavar="KEY.PATH=VALUE", dest="overrides",
+                   help="config override (repeatable)")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="where the work runs (default: cuda; there is no "
+                        "fallback)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="onix_torch",
@@ -27,29 +44,44 @@ def build_parser() -> argparse.ArgumentParser:
     p_score = sub.add_parser(
         "score", help="run the suspicious-connects scoring pipeline for one "
                       "day of one datatype")
-    p_score.add_argument("--config", "-c", default=None,
-                         help="YAML/JSON config file")
-    p_score.add_argument("--set", "-s", action="append", default=[],
-                         metavar="KEY.PATH=VALUE", dest="overrides",
-                         help="config override (repeatable)")
+    _add_common(p_score)
     p_score.add_argument("date", help="day to score, YYYY-MM-DD")
     p_score.add_argument("datatype", choices=("flow", "dns", "proxy"))
     p_score.add_argument("--tol", type=float, default=None)
     p_score.add_argument("--max-results", type=int, default=None)
-    p_score.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                         help="where the fit and scoring run (default: "
-                              "cuda; there is no fallback)")
     p_score.add_argument("--engine", choices=("gibbs", "svi", "sharded"),
                          default="gibbs")
     p_score.add_argument("--fault-inject", type=int, default=None,
                          metavar="SWEEP")
     p_score.add_argument("--fault-plan", default=None, metavar="PLAN")
+    p_serve = sub.add_parser(
+        "serve", help="serve POST /score from the device-resident model "
+                      "bank, and /feedback, /bank/stats, /metrics")
+    _add_common(p_serve)
+    p_serve.add_argument("--port", type=int, default=8889)
+    p_serve.add_argument("--host", default="127.0.0.1")
+    p_serve.add_argument("--models-dir", default=None,
+                         help="fitted-model bank root (serving.models_dir; "
+                              "default <store.root>/models — populate with "
+                              "`score ... -s serving.save_fitted=true`)")
+    p_serve.add_argument("--bank-capacity", type=int, default=None,
+                         help="resident tenants per bank shape class "
+                              "(serving.bank_capacity)")
     return parser
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     cfg = load_config(args.config, args.overrides)
+    if args.command == "serve":
+        if args.models_dir is not None:
+            cfg.serving.models_dir = args.models_dir
+        if args.bank_capacity is not None:
+            cfg.serving.bank_capacity = args.bank_capacity
+        cfg.validate()          # re-check: flags bypass load_config's pass
+        from onix_torch.oa.serve import run_serve
+        return run_serve(cfg, port=args.port, host=args.host,
+                         device=args.device)
     if args.fault_inject is not None or args.fault_plan is not None:
         raise not_ported("--fault-inject / --fault-plan",
                          "slice 1, item 'fault injection'")

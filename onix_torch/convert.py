@@ -1,9 +1,13 @@
-"""Carry fitted tables and sampler state across from the JAX package.
+"""Carry fitted tables, sampler state and filter tables across from the
+JAX package.
 
-Both functions take numpy arrays — what `np.asarray` gives for the
-fields of the reference's `GibbsState` or for its fitted θ/φ — so the
-port never imports JAX; the tests use them to put the two packages on
-the same state.
+The functions take numpy arrays — what `np.asarray` gives for the
+fields of the reference's `GibbsState`, for its fitted θ/φ, or for the
+leaves of its `FilterTables` — so the port never imports JAX; the
+tests use them to put the two packages on the same state. A model the
+reference's `checkpoint.save_model` wrote needs no converter: the npz
+and json format is shared, and the port's `checkpoint.load_models`
+reads it as it is.
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from onix_torch.feedback.filter import FilterTables, half_tensor
 from onix_torch.models.lda_gibbs import GibbsState
 
 _STATE_DTYPES = {"z": torch.int32, "n_dk": torch.int32,
@@ -41,3 +46,15 @@ def model_from_numpy(theta, phi_wk, device) -> tuple[torch.Tensor,
         return torch.tensor(np.asarray(a), dtype=torch.float32,
                             device=device)
     return t(theta), t(phi_wk)
+
+
+def filter_tables_from_numpy(leaves, device) -> FilterTables:
+    """The port's `FilterTables` on `device` from the reference's, given
+    in its field order (a reference `FilterTables` is such a sequence):
+    four (hi, lo) uint32 families, [F] or [R, F], then the boost
+    scale."""
+    *families, scale = leaves
+    fams = [tuple(half_tensor(np.asarray(a), device) for a in fam)
+            for fam in families]
+    return FilterTables(*fams, boost_scale=torch.tensor(
+        np.asarray(scale, np.float32), device=device))

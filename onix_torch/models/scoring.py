@@ -134,7 +134,8 @@ def select_suspicious(scores: np.ndarray, tol: float,
 
 class TopK(NamedTuple):
     scores: torch.Tensor   # float32 [M] ascending (smallest first)
-    indices: torch.Tensor  # int64 [M]; -1 where fewer than M qualified
+    indices: torch.Tensor  # [M] int64 (bottom_k) or int32 (K2 and
+    #                        select_bottom); -1 where fewer than M qualified
 
 
 def bottom_k(scores: torch.Tensor, *, tol: float,
@@ -156,6 +157,73 @@ def bottom_k(scores: torch.Tensor, *, tol: float,
         top_i = torch.cat([top_i, torch.full((pad,), -1, device=s.device,
                                              dtype=top_i.dtype)])
     return TopK(scores=top_s, indices=top_i)
+
+
+def _empty_topk(max_results: int, device) -> TopK:
+    return TopK(scores=torch.full((max_results,), float("inf"),
+                                  device=device),
+                indices=torch.full((max_results,), -1, dtype=torch.int32,
+                                   device=device))
+
+
+def score_events_in_order(theta: torch.Tensor, phi_wk: torch.Tensor,
+                          doc_ids: torch.Tensor, word_ids: torch.Tensor,
+                          slots: torch.Tensor | None = None
+                          ) -> torch.Tensor:
+    """`score_events` with the sum over K written out from k = 0, one
+    rounded product and one rounded add a step: the order kernel K2
+    sums in (`csrc/fused_serve.cu`), so the two agree bit for bit.
+    With `slots` [R], `theta`/`phi_wk` are banks [C, D_pad, K] /
+    [C, V_pad, K] and the ids [R, N] index each row's slot."""
+    d = doc_ids.to(torch.int64)
+    w = word_ids.to(torch.int64)
+    if slots is None:
+        _two_d(theta)
+        th, ph = theta[d], phi_wk[w]
+    else:
+        sl = slots.to(torch.int64)[:, None]
+        th, ph = theta[sl, d], phi_wk[sl, w]
+    s = th[..., 0] * ph[..., 0]
+    for k in range(1, th.shape[-1]):
+        s = s + th[..., k] * ph[..., k]
+    return s
+
+
+def select_bottom(screened: torch.Tensor, max_results: int) -> TopK:
+    """Bottom-`max_results` of already screened scores (+inf where an
+    event is rejected) along the last axis, under the strict (score,
+    index) order; -0.0 counts as +0.0, and slots past the qualifying
+    events, or holding a non-finite score, report index -1. Indices
+    are int32, as K2's."""
+    s = screened + 0.0          # -0.0 -> +0.0
+    vals, order = torch.sort(s, dim=-1, stable=True)
+    vals, order = vals[..., :max_results], order[..., :max_results]
+    pad = max_results - vals.shape[-1]
+    if pad:
+        shape = (*vals.shape[:-1], pad)
+        vals = torch.cat([vals, torch.full(shape, float("inf"),
+                                           device=s.device)], dim=-1)
+        order = torch.cat([order, torch.full(shape, -1, device=s.device,
+                                             dtype=order.dtype)], dim=-1)
+    idx = torch.where(torch.isfinite(vals), order,
+                      torch.full_like(order, -1)).to(torch.int32)
+    return TopK(scores=vals, indices=idx)
+
+
+def top_suspicious(theta, phi_wk, doc_ids, word_ids, mask, *, tol: float,
+                   max_results: int) -> TopK:
+    """Bottom-`max_results` events by score among those with mask > 0
+    and score < tol: the plain single-tenant path, in PyTorch ops
+    (`score_events_in_order`, a screen, a stable sort). It is the model
+    bank's parity oracle: a bank's winners for a request equal this on
+    the same tables, bit for bit."""
+    if doc_ids.shape[0] == 0:
+        return _empty_topk(max_results, doc_ids.device)
+    s = score_events_in_order(theta, phi_wk, doc_ids, word_ids)
+    tol_t = torch.tensor(tol, dtype=torch.float32, device=s.device)
+    s = torch.where((mask > 0) & (s < tol_t), s,
+                    torch.full_like(s, float("inf")))
+    return select_bottom(s, max_results)
 
 
 def doc_rarity(theta: torch.Tensor, doc_weights: torch.Tensor

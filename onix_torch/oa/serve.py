@@ -1,0 +1,459 @@
+"""The serving half of the HTTP server — the port of `onix/oa/serve.py`.
+
+A stdlib threading HTTP server with the reference's serving routes:
+
+- `POST /score`: mixed-tenant request batches scored through the
+  device-resident model bank (`serving/model_bank.py`), one K2 launch
+  per wave, with per-(tenant, window) winner caching. Same body,
+  refusals (400 malformed, 404 JSON refusal, 503 shed or past its
+  deadline with `Retry-After`), `X-Request-Id` echo, and `null` for
+  +inf scores.
+- `POST /feedback`: append labeled rows to the day's feedback CSV and
+  install the recompiled noise filter on the live bank, under the
+  service lock, so the next `/score` of that tenant is re-scored.
+- `GET /bank/stats` and `GET /metrics` (Prometheus text).
+
+The dashboards, the data mount and the hosted notebooks of the
+reference answer 501: they are queued in ROADMAP.md (queue 1, item
+19). The bank service is built on the first `/score` on the server's
+torch device (default the card; there is no fallback).
+`serving.replicas > 1` raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import numpy as np
+import pandas as pd
+import torch
+
+from onix_torch import not_ported
+from onix_torch.config import OnixConfig
+from onix_torch.device import resolve_device
+from onix_torch.oa.feedback import append_feedback
+
+DEFAULT_PORT = 8889             # match the reference's demo port
+_NOT_PORTED = ("the dashboards, the data mount and the notebooks are "
+               "not in the PyTorch port yet; they are queued in "
+               "ROADMAP.md under queue 1, item 19")
+
+
+class ServeHandler(BaseHTTPRequestHandler):
+    cfg: OnixConfig             # set on the subclass by make_server
+
+    def log_message(self, fmt, *args):   # quiet by default
+        pass
+
+    def do_GET(self):
+        path = self.path.split("?", 1)[0].split("#", 1)[0]
+        if path == "/bank/stats":
+            return self._bank_stats()
+        if path == "/metrics":
+            return self._metrics()
+        self.send_error(501, _NOT_PORTED)
+
+    def do_HEAD(self):
+        self.send_error(501, _NOT_PORTED)
+
+    def _reject_cross_site(self) -> bool:
+        """CSRF guard for the POST routes: require a same-origin Origin
+        (when the browser sends one), a Host matching the bound address
+        or an IP literal, and an application/json Content-Type (which
+        forces a CORS preflight for cross-site senders)."""
+        host = self.headers.get("Host", "")
+        origin = self.headers.get("Origin")
+        ctype = self.headers.get("Content-Type", "")
+        if ctype.split(";", 1)[0].strip().lower() != "application/json":
+            self.send_error(415, "Content-Type must be application/json")
+            return True
+        if origin is not None and origin != f"http://{host}":
+            self.send_error(403, "cross-origin request rejected")
+            return True
+        hostname = host.rsplit(":", 1)[0] if ":" in host else host
+        is_ip_literal = (hostname.startswith("[")          # IPv6
+                         or hostname.replace(".", "").isdigit())
+        if not is_ip_literal and hostname not in (
+                "localhost", self.server.server_name):
+            self.send_error(403, "unexpected Host header")
+            return True
+        return False
+
+    def _send_json(self, status: int, obj,
+                   headers: dict | None = None) -> None:
+        payload = json.dumps(obj).encode()
+        self.send_response(status)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(payload)))
+        self.send_header("Cache-Control", "no-store")
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(payload)
+
+    def _read_json_body(self) -> dict:
+        """Parse the request body; raises ValueError for anything that
+        is not a JSON OBJECT (handlers answer 400)."""
+        try:
+            n = int(self.headers.get("Content-Length", 0))
+        except (TypeError, ValueError) as e:
+            raise ValueError(f"bad Content-Length: {e}") from e
+        body = json.loads(self.rfile.read(n))
+        if not isinstance(body, dict):
+            raise ValueError("request body must be a JSON object")
+        return body
+
+    def do_POST(self):
+        path = self.path.split("?", 1)[0]
+        if path == "/score":
+            return self._score()
+        if path == "/feedback":
+            return self._feedback()
+        if path.startswith("/notebooks/"):
+            self.send_error(501, _NOT_PORTED)
+            return
+        self.send_error(404)
+
+    def _feedback(self):
+        if self._reject_cross_site():
+            return
+        try:
+            body = self._read_json_body()
+            rows = pd.DataFrame(body["rows"])
+            out = append_feedback(self.cfg, body["datatype"], body["date"],
+                                  rows)
+        except (KeyError, TypeError, ValueError, json.JSONDecodeError) as e:
+            self._send_json(400, {"error": str(e)})
+            return
+        # Close the loop LIVE: recompile the tenant's noise filter from
+        # the updated CSV and install it on a running bank — the epoch
+        # bump invalidates every cached winner set of the tenant. A
+        # server with no bank yet loads the filter on first score.
+        epoch = self._apply_feedback_filter(body["datatype"], body["date"],
+                                            out)
+        self._send_json(200, {"ok": True, "n": len(rows), "path": str(out),
+                              "model_epoch": epoch})
+
+    def _apply_feedback_filter(self, datatype: str, date: str,
+                               csv_path) -> int | None:
+        """Install the recompiled filter on the live bank service (if
+        one exists); returns the tenant's new model epoch, or None when
+        no bank is running yet."""
+        if not self.cfg.feedback.filter_enabled:
+            return None
+        service = self.server.peek_bank_service()
+        if service is None:
+            return None
+        from onix_torch.feedback.filter import filter_from_csv
+        from onix_torch.store import model_name
+        base = model_name(datatype, date)
+        with service.lock:
+            # Compile INSIDE the lock: installs are serialized, so two
+            # racing POSTs never leave an older snapshot live.
+            filt = filter_from_csv(csv_path, self.cfg.feedback.boost_scale)
+            return service.apply_feedback_filter(base, filt)
+
+    # -- model-bank scoring -------------------------------------------------
+
+    def _score(self):
+        # The trace id arrives on X-Request-Id (or is minted here) and
+        # rides a contextvar through submit() -> the admission queue
+        # wait -> the bank wave; it is echoed back.
+        from onix_torch.utils import telemetry
+        trace_id = self.headers.get("X-Request-Id") \
+            or telemetry.new_trace_id()
+        with telemetry.TRACER.trace(trace_id):
+            with telemetry.TRACER.span("serve.request"):
+                return self._score_traced(trace_id)
+
+    def _score_traced(self, trace_id: str):
+        if self._reject_cross_site():
+            return
+        from onix_torch.checkpoint import ModelIntegrityError
+        from onix_torch.serving.model_bank import BankRefusal, ScoreRequest
+        from onix_torch.utils.resilience import (Deadline, DeadlineExceeded,
+                                                 Overloaded)
+        # The deadline clock starts at request RECEIPT.
+        deadline = (Deadline(self.cfg.serving.request_deadline_ms / 1e3)
+                    if self.cfg.serving.request_deadline_ms > 0 else None)
+        try:
+            body = self._read_json_body()
+            raw = body["requests"]
+            if not (isinstance(raw, list) and raw):
+                raise ValueError("requests must be a non-empty list")
+            reqs = []
+            for r in raw:
+                if not isinstance(r, dict):
+                    raise ValueError("each request must be an object")
+                win = r.get("window")
+                reqs.append(ScoreRequest(
+                    tenant=str(r["tenant"]),
+                    doc_ids=np.asarray(r["doc_ids"], np.int32),
+                    word_ids=np.asarray(r["word_ids"], np.int32),
+                    window=None if win is None else str(win)))
+            tol = float(body.get("tol", self.cfg.pipeline.tol))
+            max_results = int(body.get("max_results",
+                                       self.cfg.pipeline.max_results))
+            if not 1 <= max_results <= 100_000:
+                raise ValueError(f"bad max_results {max_results}")
+        except (KeyError, TypeError, ValueError,
+                json.JSONDecodeError) as e:
+            self.send_error(400, f"bad request: {e}")
+            return
+        service = self.server.bank_service(self.cfg)
+        try:
+            results = service.submit(reqs, tol=tol,
+                                     max_results=max_results,
+                                     deadline=deadline)
+        except Overloaded as e:
+            # RFC 9110 delay-seconds is a non-negative integer.
+            self._send_json(503, {"ok": False, "shed": True,
+                                  "trace_id": trace_id,
+                                  "error": str(e)},
+                            headers={"Retry-After":
+                                     str(max(1, math.ceil(
+                                         e.retry_after_s))),
+                                     "X-Request-Id": trace_id})
+            return
+        except DeadlineExceeded as e:
+            self._send_json(503, {"ok": False, "deadline_expired": True,
+                                  "trace_id": trace_id,
+                                  "error": str(e)},
+                            headers={"Retry-After": "1",
+                                     "X-Request-Id": trace_id})
+            return
+        except (BankRefusal, ModelIntegrityError) as e:
+            # Unknown tenant, out-of-range ids, rotted model: rejected
+            # before any device work.
+            self._send_json(404, {"ok": False, "trace_id": trace_id,
+                                  "error": str(e)},
+                            headers={"X-Request-Id": trace_id})
+            return
+        # Unfilled slots (index -1) carry +inf, which is not JSON: null.
+        self._send_json(200, {"ok": True, "trace_id": trace_id,
+                              "results": [
+            {"tenant": req.tenant, "window": req.window,
+             "cached": res.cached, "degraded": res.degraded,
+             "scores": [s if math.isfinite(s) else None
+                        for s in np.asarray(res.topk.scores).tolist()],
+             "indices": np.asarray(res.topk.indices).tolist()}
+            for req, res in zip(reqs, results)]},
+                        headers={"X-Request-Id": trace_id})
+
+    def _bank_stats(self):
+        from onix_torch.checkpoint import list_models
+        from onix_torch.utils.obs import counters
+        service = self.server.bank_service(self.cfg)
+        with service.lock:
+            stats = {
+                "tenants_registered": len(service.bank.tenants()),
+                "dispatches": service.bank.dispatches,
+                "compiled_shapes": len(service.bank.compiled_shapes),
+                "tiers": service.bank.tier_stats(),
+                "models_on_disk": len(list_models(
+                    self.cfg.serving.models_dir)),
+                "cache": service.cache_stats(),
+                "admission": service.admission_stats(),
+                "counters": {**counters.snapshot("bank"),
+                             **counters.snapshot("serve")},
+            }
+        self._send_json(200, stats)
+
+    def _metrics(self):
+        """GET /metrics — Prometheus text: every counter, every span
+        histogram, admission and bank gauges, and the config identity.
+        Bank internals are read under a 250 ms lock attempt: a scrape
+        landing mid-wave reports `onix_metrics_partial 1` instead of
+        stalling, and never builds the bank."""
+        from onix_torch.utils import telemetry
+        from onix_torch.utils.obs import counters
+        gauges: dict[str, float] = {
+            "telemetry.enabled": 1.0 if telemetry.TRACER.enabled else 0.0,
+            "telemetry.sample": telemetry.TRACER.sample,
+        }
+        service = self.server.peek_bank_service()
+        if service is not None:
+            adm = service.admission_stats()
+            gauges["serve.queue_depth"] = adm["queue_depth"]
+            gauges["serve.queue_depth_high_water"] = adm["queue_depth_peak"]
+            gauges["serve.max_queue_depth"] = adm["max_queue_depth"]
+            if service.lock.acquire(timeout=0.25):
+                try:
+                    bank = service.bank
+                    tiers = bank.tier_stats()
+                    gauges.update({
+                        "bank.tenants_registered": len(bank.tenants()),
+                        "bank.tenants_resident": tiers["hbm"]["resident"],
+                        "bank.shape_classes": len(bank._shards),
+                        "bank.compiled_shape_count":
+                            len(bank.compiled_shapes),
+                        "bank.dispatch_count": bank.dispatches,
+                        "bank.tenants_with_filters": len(bank._filters),
+                        "bank.winner_cache_entries": len(service._cache),
+                        "bank.tier_hbm_resident": tiers["hbm"]["resident"],
+                        "bank.tier_host_resident":
+                            tiers["host"]["resident"],
+                        "bank.prefetch_tracked_tenants":
+                            tiers["prefetch"]["tracked_tenants"],
+                        "bank.model_epoch_max":
+                            max([0, *bank._epochs.values()]),
+                    })
+                finally:
+                    service.lock.release()
+            else:
+                gauges["metrics.partial"] = 1.0
+        body = telemetry.render_prometheus(
+            counters.snapshot(), telemetry.histograms, gauges,
+            info={"config_hash": self.cfg.config_hash,
+                  "store_root": self.cfg.store.root})
+        data = body.encode()
+        self.send_response(200)
+        self.send_header("Content-Type",
+                         "text/plain; version=0.0.4; charset=utf-8")
+        self.send_header("Content-Length", str(len(data)))
+        self.send_header("Cache-Control", "no-store")
+        self.end_headers()
+        self.wfile.write(data)
+
+
+class ServeServer(ThreadingHTTPServer):
+    """ThreadingHTTPServer + the lazily built bank service, on one
+    torch device."""
+
+    def __init__(self, *args, device: torch.device, **kw):
+        super().__init__(*args, **kw)
+        self.device = device
+        # Guards LAZY CONSTRUCTION of the bank service only: scoring
+        # and filter installs serialize on the service's own lock.
+        self.bank_lock = threading.Lock()
+        self._bank_service = None
+
+    def peek_bank_service(self):
+        """The bank service if one has been created — /feedback and
+        /metrics never build the bank just to answer."""
+        return self._bank_service
+
+    def bank_service(self, cfg: OnixConfig):
+        """The per-server BankService, created on first use. The loader
+        pulls fitted models from serving.models_dir on first reference
+        (checkpoint.load_models — digest-verified)."""
+        with self.bank_lock:
+            if self._bank_service is None:
+                self._bank_service = _make_service(cfg, self.device)
+            return self._bank_service
+
+
+def _make_service(cfg: OnixConfig, device: torch.device):
+    from onix_torch.checkpoint import load_models, model_meta_epoch
+    from onix_torch.feedback.filter import filter_from_csv
+    from onix_torch.serving.model_bank import (BankRefusal, BankService,
+                                               ModelBank, TenantModel)
+    from onix_torch.store import feedback_path
+
+    def as_tenant_model(name: str, m) -> TenantModel:
+        if m.arrays["theta"].ndim != 2:
+            raise BankRefusal(
+                f"model {name!r} is multi-chain "
+                f"({m.arrays['theta'].shape}); combine chains upstream "
+                "before banking")
+        return TenantModel(m.arrays["theta"], m.arrays["phi_wk"],
+                           epoch=int(m.meta.get("model_epoch", 0)))
+
+    def bulk_loader(names: list[str]) -> dict[str, TenantModel]:
+        # ONE host-side pass over the misses; absent names are simply
+        # missing from the result -> BankRefusal upstream.
+        try:
+            loaded = load_models(cfg.serving.models_dir, names)
+        except ValueError as e:     # path traversal attempt
+            raise BankRefusal(str(e)) from e
+        return {name: as_tenant_model(name, m)
+                for name, m in loaded.items()}
+
+    def loader(tenant: str) -> TenantModel | None:
+        return bulk_loader([tenant]).get(tenant)
+
+    def filter_loader(tenant: str):
+        # Tenant names are store.model_name keys (<datatype>/<yyyymmdd>
+        # [/<sub>]): the persisted feedback CSV of that (datatype, date)
+        # compiles into the tenant's filter on first load.
+        if not cfg.feedback.filter_enabled:
+            return None
+        parts = tenant.split("/")
+        if len(parts) < 2:
+            return None
+        try:
+            path = feedback_path(cfg.store.feedback_dir, parts[0], parts[1])
+        except ValueError:
+            return None
+        return filter_from_csv(path, cfg.feedback.boost_scale)
+
+    def epoch_loader(tenant: str):
+        # One small json read: a re-save by another process moves the
+        # epoch before any cached winner can be served.
+        try:
+            return model_meta_epoch(cfg.serving.models_dir, tenant)
+        except ValueError:          # traversal-shaped name
+            return None
+
+    bank = ModelBank(
+        capacity=cfg.serving.bank_capacity, form=cfg.serving.bank_form,
+        loader=loader, bulk_loader=bulk_loader,
+        host_capacity=cfg.serving.host_model_cache,
+        filter_loader=filter_loader, epoch_loader=epoch_loader,
+        serve_form=cfg.serving.serve_form, device=device,
+        shard_form=cfg.serving.bank_shard,
+        prefetch_depth=cfg.serving.prefetch_depth)
+    return BankService(
+        bank, max_batch_requests=cfg.serving.max_batch_requests,
+        cache_size=cfg.serving.winner_cache_size,
+        max_queue_depth=cfg.serving.max_queue_depth,
+        request_deadline_s=cfg.serving.request_deadline_ms / 1e3)
+
+
+def make_server(cfg: OnixConfig, port: int = DEFAULT_PORT,
+                host: str = "127.0.0.1",
+                device: str | torch.device = "cuda") -> ServeServer:
+    """The server, bound but not yet serving. Raises for
+    `serving.replicas > 1` (not ported) and, with the default device,
+    when there is no card."""
+    if cfg.serving.replicas > 1:
+        raise not_ported("serving.replicas > 1 (replicas behind a router)",
+                         "queue 1, item 12")
+    dev = resolve_device(device)
+    from onix_torch.utils import telemetry
+    telemetry.apply_config(cfg.telemetry)
+    handler = type("BoundServeHandler", (ServeHandler,), {"cfg": cfg})
+    return ServeServer((host, port), handler, device=dev)
+
+
+def run_serve(cfg: OnixConfig, port: int = DEFAULT_PORT,
+              host: str = "127.0.0.1",
+              device: str | torch.device = "cuda") -> int:
+    server = make_server(cfg, port, host, device)
+    print(f"onix_torch serve: /score, /feedback, /bank/stats and /metrics "
+          f"at http://{host}:{server.server_address[1]}/ on "
+          f"{server.device} (models from {cfg.serving.models_dir})",
+          flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+    return 0
+
+
+def serve_background(cfg: OnixConfig, port: int = 0,
+                     host: str = "127.0.0.1",
+                     device: str | torch.device = "cuda"
+                     ) -> tuple[ServeServer, int]:
+    """Start the server on a daemon thread (tests, chip_smoke.py);
+    port 0 picks a free port. Returns (server, bound_port); stop it
+    with `server.shutdown(); server.server_close()`."""
+    server = make_server(cfg, port, host, device)
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    return server, server.server_address[1]

@@ -91,8 +91,6 @@ def run_scoring(cfg: OnixConfig, engine: str = "gibbs",
     if cfg.pipeline.columnar == "on":
         raise not_ported("pipeline.columnar='on'",
                          "slice 1, item 'columnar read'")
-    if cfg.serving.save_fitted:
-        raise not_ported("serving.save_fitted=True", "slice 2 (serving)")
     t0 = time.time()
     datatype = cfg.pipeline.datatype
     date = cfg.pipeline.date
@@ -129,6 +127,25 @@ def run_scoring(cfg: OnixConfig, engine: str = "gibbs",
     kernel_launches = sample_count.launches - launches_before
     for s, ll in fit["ll_history"]:
         log.emit("likelihood", sweep=int(s), ll=float(ll))
+
+    # Serving handoff: persist the fitted tables under
+    # serving.models_dir keyed store.model_name(datatype, date), so
+    # `onix_torch serve`'s /score can bank this day's model beside
+    # every other tenant's (digest-stamped npz, checkpoint.save_model).
+    model_saved = None
+    if cfg.serving.save_fitted:
+        from onix_torch.checkpoint import model_meta_epoch, save_model
+        from onix_torch.store import model_name
+        name = model_name(datatype, date)
+        # A RE-fit bumps past the stored epoch: the serving winner
+        # cache keys on it, and a re-save that reset the epoch would let
+        # a bank that reloads this file serve pre-refit cached winners.
+        prev = model_meta_epoch(cfg.serving.models_dir, name)
+        model_saved = str(save_model(
+            cfg.serving.models_dir, name, fit["theta"], fit["phi_wk"],
+            meta={"engine": engine, "config_hash": cfg.config_hash},
+            epoch=0 if prev is None else prev + 1))
+        log.emit("model_saved", path=model_saved)
 
     # Score REAL tokens only (feedback duplicates are training-only).
     meter = Meter()
@@ -209,6 +226,8 @@ def run_scoring(cfg: OnixConfig, engine: str = "gibbs",
         "device": describe(dev),
         "kernel_launches": {"sample_count": int(kernel_launches)},
     }
+    if model_saved is not None:
+        manifest["model_saved"] = model_saved
     out_csv.with_suffix(".manifest.json").write_text(
         json.dumps(manifest, indent=2))
     cfg.archive(out_csv.with_suffix(".config.json"))

@@ -1,0 +1,992 @@
+"""Device-resident model bank: one kernel launch scores a wave of
+requests from many tenants — the port of `onix/serving/model_bank.py`.
+
+Tenants' (θ, φ) tables are stacked and padded into bank tensors on the
+card,
+
+    theta_bank [C, D_pad, K]      phi_bank [C, V_pad, K]
+
+grouped by a pow2 pad ladder (`models/compaction.pow2_bucket`) so
+tenants of similar size share one shape class. A mixed-tenant request
+batch is split into waves, and each wave is ONE launch of kernel K2
+(`models/fused_serve.bank_score_fused`): per request row the kernel
+reads each event's θ and φ rows from the bank at slot·D_pad + d,
+scores, applies the row's feedback filter, screens and selects the
+bottom M. Per-tenant winners equal the plain single-tenant
+`scoring.top_suspicious` on the same tables, bit for bit.
+
+The reference has two batched forms (`vmap`, `gather`) and two serving
+forms (`xla`, `fused`), all giving the same winners and chosen for
+speed on the TPU. With the rows gathered inside the kernel they are
+one call here: `serving.bank_form` auto|vmap|gather and
+`serving.serve_form` auto|fused all take K2; `serve_form="xla"` and
+`bank_shard="sharded"` (or more than one device) raise
+NotImplementedError naming their ROADMAP item. There is no second form
+to fall back to: a K2 failure propagates (`serve.form_fallback` and
+`fallback_dispatches` stay 0).
+
+Residency: each shape class holds `capacity` resident slots. Admission
+stages all newly needed tenants of a wave on the host and ships ONE
+host-to-device copy per table family; eviction is LRU and happens only
+at wave boundaries, so a capped bank's winners equal an uncapped
+one's. Admits, evicts, hits, H2D bytes/transfers and dispatches are
+counted under ``bank.*`` in `utils.obs.counters`. Host tier and
+prefetch: loader-backed models stay in a host registry bounded by
+`host_capacity`, with a demand-tracked prefetcher (`bank.prefetch_*`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+from onix_torch import not_ported
+from onix_torch.config import resolve_form_gate
+from onix_torch.device import resolve_device
+from onix_torch.feedback.filter import (FILTER_FLOOR, FilterTables,
+                                        HostFilter, _pad_sorted, half_tensor,
+                                        split_key)
+from onix_torch.models import fused_serve
+from onix_torch.models.compaction import pow2_bucket
+from onix_torch.models.scoring import TopK
+from onix_torch.utils import faults, telemetry
+from onix_torch.utils.obs import counters
+from onix_torch.utils.resilience import (Deadline, Overloaded, RetryPolicy,
+                                         retry_call)
+
+# Bounded absorb-and-replay budgets for the serve-path fault sites.
+# Injected faults fire at ENTRY points — before any cache/residency/
+# filter mutation — so one bounded retry replays the call safely; zero
+# backoff because the sites are in-process, not I/O.
+_SERVE_RETRY = RetryPolicy(max_attempts=2, base_backoff_s=0.0, jitter=0.0,
+                           salvage_on_final=False)
+# Model loads ARE I/O (models_dir may be network-backed): transient
+# OSErrors get one backed-off retry, then the batch is REFUSED
+# (BankRefusal) instead of wedging on a dead filesystem.
+_LOAD_RETRY = RetryPolicy(max_attempts=2, base_backoff_s=0.05,
+                          max_backoff_s=1.0, jitter=0.0,
+                          salvage_on_final=False)
+
+# Pad floors for the bank shape ladder: smallest [D_pad]/[V_pad] a
+# tenant occupies.
+BANK_DOC_FLOOR = 256
+BANK_VOCAB_FLOOR = 256
+# Pow2 floor for the per-request event axis.
+BANK_EVENTS_FLOOR = 64
+
+
+def select_bank_form(form: str) -> str:
+    """The reference's batched-form gate (ONIX_BANK_FORM > explicit >
+    default), kept so that a typo'd form still fails loudly. Both forms
+    are one K2 call here; the name is recorded in the shape keys."""
+    return resolve_form_gate(gate="bank form", choices=("vmap", "gather"),
+                             explicit=form, env_var="ONIX_BANK_FORM",
+                             default="gather")
+
+
+def select_serve_form(form: str) -> str:
+    """The serving-scan form (ONIX_SERVE_FORM > explicit > "fused").
+    The port has K2 only: "xla" raises NotImplementedError."""
+    got = resolve_form_gate(gate="serve_form", choices=("xla", "fused"),
+                            explicit=form, env_var="ONIX_SERVE_FORM",
+                            default="fused")
+    if got == "xla":
+        raise not_ported("serving.serve_form='xla' (the three-stage "
+                         "scan)", "queue 1, item 12")
+    return got
+
+
+def select_shard_form(form: str) -> str:
+    """The bank placement form (ONIX_BANK_SHARD > explicit >
+    "single"). Tenant-hash placement over several cards waits for
+    slice 5: "sharded" raises NotImplementedError."""
+    got = resolve_form_gate(gate="bank shard", choices=("single", "sharded"),
+                            explicit=form, env_var="ONIX_BANK_SHARD",
+                            default="single")
+    if got == "sharded":
+        raise not_ported("serving.bank_shard='sharded'",
+                         "slice 5 (multiple devices and hosts)")
+    return got
+
+
+class BankRefusal(ValueError):
+    """A request the bank refuses to score (unknown tenant, out-of-range
+    token ids, or a single batch needing more distinct tenants than the
+    residency capacity). The request is REJECTED before any device
+    work — never scored against wrong or padded tables."""
+
+
+@dataclasses.dataclass(frozen=True)
+class TenantModel:
+    """One tenant's fitted tables, host-side (f32 [D,K] / [V,K]).
+    `epoch` is the persisted model epoch (checkpoint meta
+    `model_epoch`); the bank's winner-cache invalidation keys on it."""
+    theta: np.ndarray
+    phi_wk: np.ndarray
+    epoch: int = 0
+
+    @property
+    def n_docs(self) -> int:
+        return int(self.theta.shape[0])
+
+    @property
+    def n_vocab(self) -> int:
+        return int(self.phi_wk.shape[0])
+
+    @property
+    def n_topics(self) -> int:
+        return int(self.theta.shape[1])
+
+
+@dataclasses.dataclass
+class ScoreRequest:
+    """One (tenant, window) scoring request: bottom-`max_results`
+    suspicious events among the request's (doc, word) tokens, exactly
+    the single-tenant `top_suspicious` contract. `window` identifies an
+    immutable replay window for the winner cache; None disables
+    caching for the request."""
+    tenant: str
+    doc_ids: np.ndarray
+    word_ids: np.ndarray
+    window: str | None = None
+
+
+class _Shard:
+    """One shape class's resident bank: [C, D_pad, K] / [C, V_pad, K]
+    tensors on the bank's device plus the tenant→slot LRU
+    bookkeeping."""
+
+    def __init__(self, d_pad: int, v_pad: int, k: int, capacity: int,
+                 device: torch.device):
+        self.d_pad, self.v_pad, self.k = d_pad, v_pad, k
+        self.capacity = capacity
+        self.theta = torch.zeros((capacity, d_pad, k), dtype=torch.float32,
+                                 device=device)
+        self.phi = torch.zeros((capacity, v_pad, k), dtype=torch.float32,
+                               device=device)
+        self.lru: OrderedDict[str, int] = OrderedDict()  # tenant -> slot
+        self.free: list[int] = list(range(capacity - 1, -1, -1))
+
+
+class ModelBank:
+    """The device-resident bank: registry + residency + batched scoring.
+
+    `capacity` is resident tenants PER SHAPE CLASS. `loader(tenant)`
+    supplies models not in the host registry one at a time;
+    `bulk_loader(names)` (the serve layer wires it to
+    `checkpoint.load_models` over `serving.models_dir`) fetches a
+    request batch's unknown tenants in one host-side pass. A loader
+    miss is a `BankRefusal`. `host_capacity` (0 = unbounded) caps how
+    many loader-backed models stay in the HOST registry. `device` is
+    where the banks live and K2 runs (default the card; there is no
+    fallback); `devices` with more than one entry raises, as do
+    `serve_form` "xla" and `shard_form` "sharded"."""
+
+    def __init__(self, capacity: int = 64, form: str = "auto",
+                 loader=None, bulk_loader=None, host_capacity: int = 0,
+                 filter_loader=None, epoch_loader=None,
+                 serve_form: str = "auto",
+                 device: str | torch.device = "cuda", devices=None,
+                 shard_form: str = "auto", prefetch_depth: int = 0):
+        if capacity < 1:
+            raise ValueError("bank capacity must be >= 1")
+        if host_capacity < 0:
+            raise ValueError("host_capacity must be >= 0 (0 = unbounded)")
+        if prefetch_depth < 0:
+            raise ValueError("prefetch_depth must be >= 0 (0 = off)")
+        if devices is not None and len(devices) > 1:
+            raise not_ported("a model bank over several devices",
+                             "slice 5 (multiple devices and hosts)")
+        self.form = select_bank_form(form)
+        self.serve_form = select_serve_form(serve_form)
+        self.shard_form = select_shard_form(shard_form)
+        self.device = resolve_device(devices[0] if devices else device)
+        self.capacity = capacity
+        self._loader = loader
+        self._bulk_loader = bulk_loader
+        self._filter_loader = filter_loader
+        self._epoch_loader = epoch_loader
+        self.host_capacity = host_capacity
+        self._models: OrderedDict[str, TenantModel] = OrderedDict()
+        self._loader_backed: set[str] = set()
+        self._shards: dict[tuple[int, int, int], _Shard] = {}
+        # Host-tier prefetcher: decayed per-tenant request counts (the
+        # Zipf demand estimate), the promote budget per batch boundary,
+        # and the promoted-but-not-yet-referenced set the hit/waste
+        # accounting keys on.
+        self.prefetch_depth = prefetch_depth
+        self._demand: dict[str, float] = {}
+        self._prefetched: set[str] = set()
+        self._demand_batches = 0
+        # Feedback loop: per-tenant compiled noise filter + MODEL EPOCH.
+        # The epoch bumps on every event that can change a tenant's
+        # winners — add() and set_filter() — and the winner cache keys
+        # on it.
+        self._filters: dict[str, HostFilter] = {}
+        self._epochs: dict[str, int] = {}
+        # Last PERSISTED model_epoch seen per tenant (add() adopt/bump).
+        self._disk_epochs: dict[str, int] = {}
+        self.dispatches = 0
+        # The reference counts fused-to-xla fallbacks here; the port
+        # has one serving form, so this stays 0.
+        self.fallback_dispatches = 0
+        self.compiled_shapes: set[tuple] = set()
+
+    # -- registry ---------------------------------------------------------
+
+    def add(self, tenant: str, theta, phi_wk,
+            epoch: int | None = None) -> None:
+        theta = np.ascontiguousarray(theta, np.float32)
+        phi_wk = np.ascontiguousarray(phi_wk, np.float32)
+        if theta.ndim != 2 or phi_wk.ndim != 2 \
+                or theta.shape[1] != phi_wk.shape[1]:
+            raise ValueError(
+                f"tenant {tenant!r}: want theta [D,K] / phi_wk [V,K] with a "
+                f"shared K, got {theta.shape} / {phi_wk.shape}")
+        self._models[tenant] = TenantModel(theta, phi_wk,
+                                           epoch=int(epoch or 0))
+        # New tables invalidate cached winners. An EXPLICIT epoch is a
+        # persisted stamp (loader path): reloading the SAME file (stamp
+        # unchanged since last seen) must NOT invalidate its cached
+        # winners, but a CHANGED stamp moves the in-memory epoch PAST
+        # its current value even when set_filter bumps have inflated
+        # it. A bare add() means new tables of unknown provenance:
+        # always bump.
+        cur = self._epochs.get(tenant)
+        if epoch is not None:
+            prev_disk = self._disk_epochs.get(tenant)
+            self._disk_epochs[tenant] = int(epoch)
+            if prev_disk is not None and int(epoch) != prev_disk:
+                self._epochs[tenant] = max((cur or 0) + 1, int(epoch))
+            else:
+                self._epochs[tenant] = max(cur or 0, int(epoch))
+        else:
+            self._epochs[tenant] = (cur + 1) if cur is not None else 0
+        # Device residency of the OLD tables must not survive the new
+        # ones: evict from every shard so the next wave re-admits.
+        self._evict_everywhere(tenant)
+
+    def _evict_everywhere(self, tenant: str) -> None:
+        for shard in self._shards.values():
+            if tenant in shard.lru:
+                shard.free.append(shard.lru.pop(tenant))
+                counters.inc("bank.evict")
+
+    def epoch(self, tenant: str) -> int:
+        """Current model epoch (0 for a tenant never seen)."""
+        return self._epochs.get(tenant, 0)
+
+    def set_filter(self, tenant: str, filt: HostFilter | None) -> None:
+        """Install (or clear, with None/empty) a tenant's compiled
+        noise filter. Always bumps the epoch."""
+        if filt is None or filt.empty_filter:
+            self._filters.pop(tenant, None)
+        else:
+            self._filters[tenant] = filt
+        self._epochs[tenant] = self._epochs.get(tenant, 0) + 1
+
+    def get_filter(self, tenant: str) -> HostFilter | None:
+        return self._filters.get(tenant)
+
+    def refresh_from_disk(self, tenant: str) -> None:
+        """Adopt an OUT-OF-PROCESS re-save: re-read the tenant's
+        persisted epoch stamp (`epoch_loader`) and, when it differs
+        from the last stamp seen, bump the in-memory epoch and drop the
+        host copy + device residency so the next score loads the NEW
+        tables. Only loader-backed tenants refresh."""
+        if self._epoch_loader is None or tenant not in self._loader_backed:
+            return
+        stamp = self._epoch_loader(tenant)
+        prev = self._disk_epochs.get(tenant)
+        if stamp is None or prev is None or stamp == prev:
+            return
+        self._disk_epochs[tenant] = int(stamp)
+        self._epochs[tenant] = max(self._epochs.get(tenant, 0) + 1,
+                                   int(stamp))
+        self._models.pop(tenant, None)
+        self._loader_backed.discard(tenant)
+        self._evict_everywhere(tenant)
+        counters.inc("bank.disk_epoch_refresh")
+
+    def set_filter_tree(self, base: str, filt: HostFilter | None) -> int:
+        """Install the filter on `base` AND every known sub-tenant
+        (`base/<sub>`), which share the per-(datatype, date) feedback
+        CSV. Returns base's new epoch."""
+        prefix = base + "/"
+        targets = {base} | {t for t in
+                            set(self._models) | set(self._filters)
+                            if t.startswith(prefix)}
+        for t in targets:
+            self.set_filter(t, filt)
+        return self.epoch(base)
+
+    def _load_retried(self, what: str, fn):
+        """Drive a model load under the bounded `_LOAD_RETRY` policy:
+        transient OSErrors get one backed-off retry; exhaustion REFUSES
+        with BankRefusal (`bank.load_refusal`). Non-I/O errors
+        (ModelIntegrityError, BankRefusal) propagate untouched."""
+        try:
+            return retry_call(lambda strict: fn(), policy=_LOAD_RETRY,
+                              counter_prefix="bank.load",
+                              retry_on=OSError)
+        except OSError as e:
+            counters.inc("bank.load_refusal")
+            raise BankRefusal(
+                f"{what}: model load failed after "
+                f"{_LOAD_RETRY.max_attempts} attempts: {e}") from e
+
+    def _adopt(self, tenant: str, m: TenantModel) -> None:
+        """Register a loader-supplied model with its persisted epoch and
+        attach its feedback filter."""
+        self.add(tenant, m.theta, m.phi_wk, epoch=m.epoch)
+        self._loader_backed.add(tenant)
+        self._load_filter(tenant)
+
+    def model(self, tenant: str) -> TenantModel:
+        m = self._models.get(tenant)
+        if m is not None:
+            self._models.move_to_end(tenant)
+        if m is None and self._loader is not None:
+            m = self._load_retried(f"tenant {tenant!r}",
+                                   lambda: self._loader(tenant))
+            if m is not None:
+                self._adopt(tenant, m)
+                self._trim_host_registry(keep={tenant})
+                m = self._models[tenant]
+        if m is None:
+            raise BankRefusal(f"unknown tenant {tenant!r}")
+        return m
+
+    def _load_filter(self, tenant: str) -> None:
+        """Attach the tenant's persisted feedback filter on first load,
+        through set_filter (the attach bumps the epoch)."""
+        if self._filter_loader is None or tenant in self._filters:
+            return
+        filt = self._filter_loader(tenant)
+        if filt is not None and not filt.empty_filter:
+            self.set_filter(tenant, filt)
+
+    def _trim_host_registry(self, keep: set[str] = frozenset()) -> None:
+        """Drop the oldest re-fetchable, non-device-resident host
+        copies down to `host_capacity` loader-backed entries. `keep`
+        names tenants in flight that must survive even over the cap."""
+        if not self.host_capacity:
+            return
+        n_backed = len(self._loader_backed)
+        if n_backed <= self.host_capacity:
+            return
+        for t in list(self._models):        # OrderedDict: oldest first
+            if n_backed <= self.host_capacity:
+                break
+            if t in keep or t not in self._loader_backed:
+                continue
+            if any(t in sh.lru for sh in self._shards.values()):
+                continue                    # still on device: keep host copy
+            del self._models[t]
+            self._loader_backed.discard(t)
+            counters.inc("bank.host_evict")
+            if t in self._prefetched:
+                # Promoted ahead of demand, evicted before any request
+                # referenced it: the prefetcher's false positive.
+                self._prefetched.discard(t)
+                counters.inc("bank.prefetch_waste")
+            n_backed -= 1
+
+    # -- host-RAM residency tier: demand-tracked prefetch -----------------
+
+    def _note_demand(self, requests) -> None:
+        """Fold one request batch into the decayed per-tenant demand
+        counts; halving every 32 batches keeps a sliding window."""
+        for req in requests:
+            self._demand[req.tenant] = self._demand.get(req.tenant, 0.) + 1.
+        self._demand_batches += 1
+        if self._demand_batches % 32 == 0:
+            self._demand = {t: v / 2 for t, v in self._demand.items()
+                            if v >= 0.5}
+
+    def _note_tiers(self, requests) -> None:
+        """Per-request residency-tier accounting, BEFORE the batch
+        mutates anything: hbm (device-resident), host (registry copy),
+        disk (absent — the loaders will fetch it)."""
+        for req in requests:
+            t = req.tenant
+            if t not in self._models:
+                counters.inc("bank.tier_disk_load")
+            elif self.resident(t):
+                counters.inc("bank.tier_hbm_hit")
+                self._touch_prefetched(t)
+            else:
+                counters.inc("bank.tier_host_hit")
+                self._touch_prefetched(t)
+
+    def _touch_prefetched(self, tenant: str) -> None:
+        if tenant in self._prefetched:
+            self._prefetched.discard(tenant)
+            counters.inc("bank.prefetch_hit")
+
+    def prefetch(self, tenants: list[str]) -> int:
+        """Promote `tenants` from disk into the host-RAM tier in ONE
+        bulk pass. Chaos site `bank:prefetch` fires at ENTRY, so the
+        caller's bounded retry replays the whole promotion safely.
+        Returns tenants actually promoted."""
+        want = [t for t in tenants if t not in self._models]
+        if not want or self._bulk_loader is None:
+            return 0
+        with telemetry.TRACER.span("bank.prefetch", tenants=len(want)):
+            faults.fire("bank", "prefetch")
+            loaded = self._load_retried(f"prefetch of {len(want)} tenants",
+                                        lambda: self._bulk_loader(want))
+            for t, m in loaded.items():
+                self._adopt(t, m)
+                self._prefetched.add(t)
+                counters.inc("bank.prefetch_promoted")
+            self._trim_host_registry(keep=set(loaded))
+        return len(loaded)
+
+    def _maybe_prefetch(self) -> None:
+        """One best-effort prefetch pass at a request-batch boundary:
+        an injected fault is absorbed by one bounded replay, and
+        exhaustion is counted and dropped, never surfaced."""
+        if not self.prefetch_depth or self._bulk_loader is None:
+            return
+        hot = sorted(self._demand.items(), key=lambda kv: -kv[1])
+        cands = [t for t, _ in hot if t not in self._models]
+        cands = cands[:self.prefetch_depth]
+        if not cands:
+            return
+        counters.inc("bank.prefetch")
+        try:
+            retry_call(lambda strict: self.prefetch(cands),
+                       policy=_SERVE_RETRY, counter_prefix="bank.prefetch",
+                       retry_on=faults.InjectedFault)
+        except (faults.InjectedFault, BankRefusal):
+            counters.inc("bank.prefetch_failed")
+
+    def tier_stats(self) -> dict:
+        """The per-tier residency picture `/bank/stats` exposes."""
+        hbm_resident = sum(len(sh.lru) for sh in self._shards.values())
+        return {
+            "hbm": {"resident": hbm_resident,
+                    "capacity_per_class": self.capacity,
+                    "shape_classes": len(self._shards),
+                    "per_device_resident": {"d0": hbm_resident},
+                    "hits": counters.get("bank.tier_hbm_hit")},
+            "host": {"resident": len(self._models),
+                     "loader_backed": len(self._loader_backed),
+                     "capacity": self.host_capacity,
+                     "hits": counters.get("bank.tier_host_hit"),
+                     "evictions": counters.get("bank.host_evict")},
+            "disk": {"loads": counters.get("bank.tier_disk_load")},
+            "prefetch": {"depth": self.prefetch_depth,
+                         "passes": counters.get("bank.prefetch"),
+                         "promoted": counters.get("bank.prefetch_promoted"),
+                         "hits": counters.get("bank.prefetch_hit"),
+                         "waste": counters.get("bank.prefetch_waste"),
+                         "failed": counters.get("bank.prefetch_failed"),
+                         "tracked_tenants": len(self._demand)},
+            "shard_form": self.shard_form,
+            "n_devices": 1,
+        }
+
+    def tenants(self) -> list[str]:
+        return sorted(self._models)
+
+    def _class_of(self, m: TenantModel) -> tuple[int, int, int]:
+        return (pow2_bucket(m.n_docs, BANK_DOC_FLOOR),
+                pow2_bucket(m.n_vocab, BANK_VOCAB_FLOOR), m.n_topics)
+
+    # -- residency --------------------------------------------------------
+
+    def resident(self, tenant: str) -> bool:
+        m = self._models.get(tenant)
+        if m is None:
+            return False
+        shard = self._shards.get(self._class_of(m))
+        return shard is not None and tenant in shard.lru
+
+    def _ensure_resident(self, shard: _Shard, needed: list[str]) -> None:
+        """Admit every tenant in `needed` (distinct, order-preserving)
+        into `shard`, LRU-evicting non-needed residents as required.
+        Chaos site `bank:admit` fires BEFORE any LRU mutation or H2D
+        staging, so the bounded retry replays the admission safely."""
+        with telemetry.TRACER.span("bank.admit", tenants=len(needed)):
+            faults.fire("bank", "admit")
+            self._admit_locked(shard, needed)
+
+    def _admit_locked(self, shard: _Shard, needed: list[str]) -> None:
+        missing = [t for t in needed if t not in shard.lru]
+        for t in needed:
+            if t in shard.lru:
+                shard.lru.move_to_end(t)
+                counters.inc("bank.resident_hit")
+        if not missing:
+            return
+        if len(needed) > shard.capacity:
+            raise BankRefusal(
+                f"request batch needs {len(needed)} distinct tenants in one "
+                f"shape class; residency capacity is {shard.capacity} "
+                "(split the batch)")
+        needed_set = set(needed)
+        while len(shard.free) < len(missing):
+            for t in shard.lru:        # OrderedDict: oldest first
+                if t not in needed_set:
+                    shard.free.append(shard.lru.pop(t))
+                    counters.inc("bank.evict")
+                    break
+        # Stage ALL admits host-side and ship ONE copy per table family.
+        n = len(missing)
+        th = np.zeros((n, shard.d_pad, shard.k), np.float32)
+        ph = np.zeros((n, shard.v_pad, shard.k), np.float32)
+        slots = np.empty(n, np.int64)
+        for i, t in enumerate(missing):
+            m = self.model(t)   # not _models[]: a tiny host_capacity may
+                                # have trimmed a copy loaded this batch
+            th[i, :m.n_docs] = m.theta
+            ph[i, :m.n_vocab] = m.phi_wk
+            slots[i] = shard.free.pop()
+            shard.lru[t] = int(slots[i])
+            counters.inc("bank.admit")
+        idx = torch.from_numpy(slots).to(self.device)
+        shard.theta[idx] = torch.from_numpy(th).to(self.device)
+        shard.phi[idx] = torch.from_numpy(ph).to(self.device)
+        counters.inc("bank.h2d_transfers", 2)
+        counters.inc("bank.h2d_bytes", th.nbytes + ph.nbytes)
+
+    # -- scoring ----------------------------------------------------------
+
+    def _validate(self, req: ScoreRequest, m: TenantModel) -> None:
+        d = np.asarray(req.doc_ids)
+        w = np.asarray(req.word_ids)
+        if d.shape != w.shape or d.ndim != 1:
+            raise BankRefusal(
+                f"tenant {req.tenant!r}: doc_ids/word_ids must be equal-"
+                f"length 1-d arrays, got {d.shape} / {w.shape}")
+        if d.size and (int(d.min()) < 0 or int(d.max()) >= m.n_docs
+                       or int(w.min()) < 0 or int(w.max()) >= m.n_vocab):
+            # Out-of-range ids would gather PADDING rows (score 0 — a
+            # fabricated top winner). Refuse, never clamp.
+            raise BankRefusal(
+                f"tenant {req.tenant!r}: token ids out of range for its "
+                f"model (D={m.n_docs}, V={m.n_vocab})")
+
+    def score_batch(self, requests: list[ScoreRequest], *, tol: float,
+                    max_results: int) -> list[TopK]:
+        """Score a mixed-tenant request batch; returns a host-side TopK
+        (numpy arrays) per request, in request order. Requests group by
+        shape class and split into residency-capacity waves; each wave
+        is ONE launch of K2."""
+        out: list[TopK | None] = [None] * len(requests)
+        self._note_tiers(requests)
+        self._note_demand(requests)
+        if self._bulk_loader is not None:
+            # Fetch the batch's unknown tenants in ONE host-side pass;
+            # model() below still backstops stragglers.
+            unknown: list[str] = []
+            for req in requests:
+                if req.tenant not in self._models \
+                        and req.tenant not in unknown:
+                    unknown.append(req.tenant)
+            if unknown:
+                loaded = self._load_retried(
+                    f"{len(unknown)} tenants",
+                    lambda: self._bulk_loader(unknown))
+                for t, m in loaded.items():
+                    self._adopt(t, m)
+                self._trim_host_registry(
+                    keep={req.tenant for req in requests})
+        by_class: dict[tuple, list[int]] = {}
+        for i, req in enumerate(requests):
+            m = self.model(req.tenant)
+            self._validate(req, m)
+            by_class.setdefault(self._class_of(m), []).append(i)
+        for key, idxs in by_class.items():
+            shard = self._shards.get(key)
+            if shard is None:
+                shard = self._shards[key] = _Shard(*key, self.capacity,
+                                                   self.device)
+            for wave in self._waves(requests, idxs, shard.capacity):
+                self._score_wave(shard, requests, wave, out, tol=tol,
+                                 max_results=max_results)
+        # Request-batch boundary: trim host copies, then prefetch.
+        self._trim_host_registry()
+        self._maybe_prefetch()
+        return out  # type: ignore[return-value]
+
+    @staticmethod
+    def _waves(requests, idxs: list[int], capacity: int):
+        """Split one class's request indices into waves of <= capacity
+        distinct tenants, preserving order (eviction then happens only
+        BETWEEN waves)."""
+        wave: list[int] = []
+        tenants: set[str] = set()
+        for i in idxs:
+            t = requests[i].tenant
+            if t not in tenants and len(tenants) == capacity:
+                yield wave
+                wave, tenants = [], set()
+            wave.append(i)
+            tenants.add(t)
+        if wave:
+            yield wave
+
+    def _filter_rows(self, requests, wave: list[int],
+                     r_pad: int) -> FilterTables:
+        """Stack the wave's per-tenant filter tables into FilterTables
+        with a leading [r_pad] request axis: per family a ([r_pad, F]
+        hi, [r_pad, F] lo) pair of sorted sentinel-padded rows, plus
+        the per-row boost scale. F is the pow2 cover of the wave's
+        largest table per family (floor FILTER_FLOOR)."""
+        filts = [self._filters.get(requests[i].tenant) for i in wave]
+
+        def fam_rows(fam):
+            f_pad = pow2_bucket(
+                max([FILTER_FLOOR]
+                    + [len(getattr(x, fam)) for x in filts if x]),
+                FILTER_FLOOR)
+            rows = np.tile(_pad_sorted(np.empty(0, np.uint64), f_pad),
+                           (r_pad, 1))
+            for row, x in enumerate(filts):
+                if x is not None:
+                    keys = getattr(x, fam)
+                    rows[row, :len(keys)] = keys
+            hi, lo = split_key(rows.ravel())
+            return (half_tensor(hi.reshape(r_pad, f_pad), self.device),
+                    half_tensor(lo.reshape(r_pad, f_pad), self.device))
+
+        scale = np.ones(r_pad, np.float32)
+        for row, x in enumerate(filts):
+            if x is not None:
+                scale[row] = x.boost_scale
+        return FilterTables(word_suppress=fam_rows("word_suppress"),
+                            word_boost=fam_rows("word_boost"),
+                            pair_suppress=fam_rows("pair_suppress"),
+                            pair_boost=fam_rows("pair_boost"),
+                            boost_scale=torch.from_numpy(scale)
+                            .to(self.device))
+
+    def _score_wave(self, shard: _Shard, requests, wave: list[int],
+                    out: list, *, tol: float, max_results: int) -> None:
+        """One wave: admission, host-side staging, one K2 launch and ONE
+        winner fetch, under the `bank.score_wave` span."""
+        needed: list[str] = []
+        for i in wave:
+            if requests[i].tenant not in needed:
+                needed.append(requests[i].tenant)
+        # One bounded replay for injected admission faults (the site
+        # fires at _ensure_resident entry, pre-mutation).
+        retry_call(lambda strict: self._ensure_resident(shard, needed),
+                   policy=_SERVE_RETRY, counter_prefix="bank.admit",
+                   retry_on=faults.InjectedFault)
+        r = len(wave)
+        n_events = [int(np.asarray(requests[i].doc_ids).size) for i in wave]
+        n_pad = pow2_bucket(max(n_events), BANK_EVENTS_FLOOR)
+        r_pad = pow2_bucket(r, 1)
+        d = np.zeros((r_pad, n_pad), np.int32)
+        w = np.zeros((r_pad, n_pad), np.int32)
+        m = np.zeros((r_pad, n_pad), np.float32)
+        slots = np.zeros(r_pad, np.int32)
+        lens = np.zeros(r_pad, np.int32)
+        for row, i in enumerate(wave):
+            n = n_events[row]
+            d[row, :n] = np.asarray(requests[i].doc_ids, np.int32)
+            w[row, :n] = np.asarray(requests[i].word_ids, np.int32)
+            m[row, :n] = 1.0
+            slots[row] = shard.lru[requests[i].tenant]
+            lens[row] = n
+        # A wave with no filtered tenant ships filt_rows=None: the
+        # kernel then runs no membership search.
+        if any(requests[i].tenant in self._filters for i in wave):
+            filt_rows = self._filter_rows(requests, wave, r_pad)
+            filt_dims = tuple(int(getattr(filt_rows, f)[0].shape[1])
+                              for f in ("word_suppress", "word_boost",
+                                        "pair_suppress", "pair_boost"))
+        else:
+            filt_rows, filt_dims = None, None
+        self.compiled_shapes.add((self.form, self.serve_form, shard.d_pad,
+                                  shard.v_pad, shard.k, r_pad, n_pad,
+                                  max_results, filt_dims))
+        dev = self.device
+
+        def t(a):
+            return torch.from_numpy(a).to(dev)
+        with telemetry.TRACER.span("bank.score_wave", form=self.form,
+                                   serve=self.serve_form, requests=r,
+                                   events=sum(n_events)):
+            res = fused_serve.bank_score_fused(
+                shard.theta, shard.phi, t(slots), t(d), t(w), t(m), tol,
+                filt_rows, max_results=max_results, row_len=t(lens))
+            self.dispatches += 1
+            counters.inc("bank.dispatch")
+            counters.inc("bank.requests", r)
+            counters.inc("bank.events", sum(n_events))
+            scores = res.scores.cpu().numpy()     # ONE fetch per wave
+            indices = res.indices.cpu().numpy()
+        for row, i in enumerate(wave):
+            out[i] = TopK(scores=scores[row], indices=indices[row])
+
+
+@dataclasses.dataclass
+class BankResult:
+    """One request's outcome through the service: winners + provenance.
+    `degraded` stamps a response served past the service's soft
+    overload watermark. Degraded NEVER means stale: winners are
+    current-epoch by the same cache contract as any other response."""
+    topk: TopK
+    cached: bool
+    degraded: bool = False
+
+
+class BankService:
+    """Request batching + per-(tenant, window) winner caching in front
+    of the bank — the serve layer's entry point (`/score`).
+
+    A window names one immutable event set, so its winners are a pure
+    function of (tenant, window, tol, max_results) AND the tenant's
+    MODEL EPOCH: a hit whose stored epoch trails the tenant's current
+    one is EVICTED and re-scored (`bank.cache_epoch_evictions`). A
+    repeat with a DIFFERENT event count is scored fresh, re-cached and
+    counted (`bank.cache_conflict`)."""
+
+    #: Lock discipline: `_cache` mutators run under `lock` (submit()'s
+    #: scoring section and the serve layer's install path); the
+    #: admission tallies live under `_admit_lock`, so a shed request
+    #: never waits on scoring.
+    GUARDED_BY = {"_cache": "lock",
+                  "_pending": "_admit_lock",
+                  "peak_depth": "_admit_lock",
+                  "_ewma_wall_s": "_admit_lock"}
+
+    def __init__(self, bank: ModelBank, max_batch_requests: int = 64,
+                 cache_size: int = 4096, max_queue_depth: int = 0,
+                 request_deadline_s: float = 0.0):
+        if max_batch_requests < 1:
+            raise ValueError("max_batch_requests must be >= 1")
+        if max_queue_depth < 0 or request_deadline_s < 0:
+            raise ValueError("max_queue_depth and request_deadline_s "
+                             "must be >= 0 (0 = disabled)")
+        self.bank = bank
+        self.max_batch_requests = max_batch_requests
+        self.cache_size = cache_size
+        self._cache: OrderedDict[tuple[str, str, float, int],
+                                 tuple[int, int, TopK]] = OrderedDict()
+        # `lock` serializes scoring + filter installs; `max_queue_depth`
+        # bounds in-flight + queued submit() calls, beyond which
+        # requests SHED (Overloaded → 503 + Retry-After) BEFORE touching
+        # any bank state; `request_deadline_s` bounds receipt→scoring-
+        # start wall (queue time included).
+        self.lock = threading.RLock()
+        self.max_queue_depth = max_queue_depth
+        self.request_deadline_s = request_deadline_s
+        self._admit_lock = threading.Lock()
+        self._pending = 0
+        self.peak_depth = 0
+        # EWMA of recent scoring walls — the Retry-After hint before the
+        # histogram below holds enough observations.
+        self._ewma_wall_s = 0.05
+        self._wall_hist = telemetry.Histogram()
+
+    def _retry_hint_s(self, depth: int) -> float:
+        """Seconds until a queue slot likely frees: depth x the median
+        scoring wall (the histogram once seeded, the EWMA before)."""
+        wall = (self._wall_hist.quantile(0.5) if self._wall_hist.n >= 8
+                else self._ewma_wall_s)
+        return max(0.1, round(depth * wall, 2))
+
+    # -- admission control + deadline (the submit path) -------------------
+
+    def submit(self, requests: list[ScoreRequest], *, tol: float,
+               max_results: int,
+               deadline: Deadline | None = None) -> list[BankResult]:
+        """The admission-controlled, deadline-bounded serve entry point.
+
+        Order of refusals, all BEFORE any bank mutation:
+          1. depth — `max_queue_depth` submit() calls already in flight
+             or queued ⇒ shed (`serve.shed`, Overloaded → HTTP 503).
+          2. deadline — the budget is checked once scoring WOULD start;
+             expired ⇒ refused (`serve.deadline_expired`,
+             DeadlineExceeded → 503). Once scoring starts the request
+             runs to completion.
+
+        Served responses past the soft watermark (depth > half the
+        max) are stamped `degraded: true` (`serve.degraded`)."""
+        t_recv = time.perf_counter()
+        shed_pending = None
+        with self._admit_lock:
+            if self.max_queue_depth \
+                    and self._pending >= self.max_queue_depth:
+                shed_pending = self._pending
+            else:
+                self._pending += 1
+                depth = self._pending
+                self.peak_depth = max(self.peak_depth, depth)
+        if shed_pending is not None:
+            counters.inc("serve.shed")
+            counters.inc("serve.shed_requests", len(requests))
+            # The ring at shed time is the overload postmortem; dumped
+            # outside _admit_lock (file I/O).
+            telemetry.RECORDER.dump(
+                "serve-shed", extra={"pending": shed_pending,
+                                     "requests": len(requests)})
+            raise Overloaded(
+                f"serving queue full ({shed_pending} batches in "
+                f"flight, max_queue_depth={self.max_queue_depth})",
+                retry_after_s=self._retry_hint_s(shed_pending))
+        counters.note_max("serve.queue_depth_peak", depth)
+        soft = bool(self.max_queue_depth
+                    and depth > max(1, self.max_queue_depth // 2))
+        if deadline is None and self.request_deadline_s > 0:
+            deadline = Deadline(self.request_deadline_s)
+        try:
+            with telemetry.TRACER.span("serve.submit",
+                                       requests=len(requests),
+                                       depth=depth), \
+                    self.lock:
+                # Clock starts INSIDE the lock: the EWMA tracks scoring
+                # wall only, not queue wait.
+                t0 = time.perf_counter()
+                telemetry.TRACER.observe("serve.queue_wait", t0 - t_recv)
+                if deadline is not None and deadline.expired():
+                    counters.inc("serve.deadline_expired")
+                    deadline.check("serve request (queued past its "
+                                   "deadline budget)")
+                # Bounded replay for the injected `serve:score` site —
+                # it fires at score() entry, before any mutation.
+                results = retry_call(
+                    lambda strict: self.score(requests, tol=tol,
+                                              max_results=max_results),
+                    policy=_SERVE_RETRY, counter_prefix="serve.score",
+                    retry_on=faults.InjectedFault)
+                wall = time.perf_counter() - t0
+            self._wall_hist.observe(wall)
+            with self._admit_lock:
+                self._ewma_wall_s += 0.3 * (wall - self._ewma_wall_s)
+        finally:
+            with self._admit_lock:
+                self._pending -= 1
+        if soft:
+            counters.inc("serve.degraded")
+            counters.inc("serve.degraded_requests", len(requests))
+            results = [dataclasses.replace(r, degraded=True)
+                       for r in results]
+        counters.inc("serve.served", len(requests))
+        return results
+
+    def admission_stats(self) -> dict:
+        with self._admit_lock:
+            depth = self._pending
+        return {"queue_depth": depth,
+                "queue_depth_peak": self.peak_depth,
+                "max_queue_depth": self.max_queue_depth,
+                "request_deadline_s": self.request_deadline_s,
+                "shed": counters.get("serve.shed"),
+                "shed_requests": counters.get("serve.shed_requests"),
+                "deadline_expired": counters.get("serve.deadline_expired"),
+                "degraded": counters.get("serve.degraded"),
+                "form_fallback": counters.get("serve.form_fallback"),
+                "served": counters.get("serve.served")}
+
+    # Called only under `lock` (submit()'s scoring section).
+    def score(self, requests: list[ScoreRequest], *, tol: float,
+              max_results: int) -> list[BankResult]:
+        with telemetry.TRACER.span("serve.score", requests=len(requests)):
+            # Chaos site `serve:score`: entry, pre-mutation, so
+            # submit()'s bounded retry replays the whole call safely.
+            faults.fire("serve", "score")
+            return self._score_locked(requests, tol=tol,
+                                      max_results=max_results)
+
+    def _score_locked(self, requests: list[ScoreRequest], *, tol: float,
+                      max_results: int) -> list[BankResult]:
+        out: list[BankResult | None] = [None] * len(requests)
+        # Out-of-process update probe, once per distinct tenant per
+        # call, BEFORE the hit checks below.
+        for tenant in {r.tenant for r in requests}:
+            self.bank.refresh_from_disk(tenant)
+        misses: list[int] = []
+        for i, req in enumerate(requests):
+            key = (req.tenant, req.window, float(tol), int(max_results)) \
+                if req.window is not None else None
+            hit = self._cache.get(key) if key is not None else None
+            if hit is not None:
+                n_cached, epoch_cached, topk = hit
+                if epoch_cached != self.bank.epoch(req.tenant):
+                    # Scored under an older model epoch: never serveable.
+                    del self._cache[key]
+                    counters.inc("bank.cache_epoch_evictions")
+                elif n_cached == int(np.asarray(req.doc_ids).size):
+                    self._cache.move_to_end(key)
+                    counters.inc("bank.cache_hit")
+                    out[i] = BankResult(topk, cached=True)
+                    continue
+                else:
+                    counters.inc("bank.cache_conflict")
+            if key is not None:     # uncacheable requests don't dilute
+                counters.inc("bank.cache_miss")
+            misses.append(i)
+        for lo in range(0, len(misses), self.max_batch_requests):
+            chunk = misses[lo:lo + self.max_batch_requests]
+            topks = self.bank.score_batch([requests[i] for i in chunk],
+                                          tol=tol, max_results=max_results)
+            for i, topk in zip(chunk, topks):
+                out[i] = BankResult(topk, cached=False)
+                req = requests[i]
+                if req.window is not None:
+                    # Epoch AFTER scoring: score_batch may have loaded
+                    # the tenant (adopting its persisted epoch).
+                    self._put(
+                        (req.tenant, req.window, float(tol),
+                         int(max_results)),
+                        (int(np.asarray(req.doc_ids).size),
+                         self.bank.epoch(req.tenant), topk))
+        return out  # type: ignore[return-value]
+
+    # Called under `lock`: the serve layer's /feedback handler wraps
+    # compile + install in `with service.lock`.
+    def apply_feedback_filter(self, base: str, filt) -> int:
+        """The serve layer's one-call feedback install: filter + epoch
+        bumps for every KNOWN tenant under `base`, plus an outright
+        drop of every cache entry under the base (an unloaded
+        sub-tenant's stale entries cannot be reached through epochs).
+        Chaos site `feedback:install` fires at entry and is absorbed
+        by one bounded in-place retry. Returns base's new epoch."""
+        def _install(strict: bool = True) -> int:
+            faults.fire("feedback", "install")
+            epoch = self.bank.set_filter_tree(base, filt)
+            prefix = base + "/"
+            for key in [k for k in self._cache
+                        if k[0] == base or k[0].startswith(prefix)]:
+                del self._cache[key]
+            return epoch
+        return retry_call(_install, policy=_SERVE_RETRY,
+                          counter_prefix="serve.feedback_install",
+                          retry_on=faults.InjectedFault)
+
+    def _put(self, key, value) -> None:
+        self._cache[key] = value
+        self._cache.move_to_end(key)
+        while len(self._cache) > self.cache_size:
+            self._cache.popitem(last=False)
+
+    def cache_stats(self) -> dict:
+        return {"entries": len(self._cache),
+                "hits": counters.get("bank.cache_hit"),
+                "misses": counters.get("bank.cache_miss"),
+                "conflicts": counters.get("bank.cache_conflict"),
+                "epoch_evictions":
+                    counters.get("bank.cache_epoch_evictions")}
+
+
+def publish_refit(bank: ModelBank, tenant: str, theta, phi_wk, *,
+                  epoch: int) -> int:
+    """Propagate one accepted refit into a live serving bank: the
+    tenant's lineage epoch rides `add`'s explicit-epoch path, so its
+    cached winners invalidate and its residency evicts — for exactly
+    this tenant. Returns the bank's resulting epoch for the tenant."""
+    bank.add(tenant, theta, phi_wk, epoch=int(epoch))
+    counters.inc("bank.refit_published")
+    return bank.epoch(tenant)

@@ -1,8 +1,8 @@
-"""Observability for the port: profiler spans, the run event log and a
-throughput meter.
+"""Observability for the port: profiler spans, the run event log, a
+throughput meter and the process-wide event counters.
 
-`RunLog` and `Meter` are copies of their counterparts in
-`onix/utils/obs.py`. `trace_scope` and `maybe_trace` keep their names
+`RunLog`, `Meter` and `CounterRegistry`/`counters` are copies of their
+counterparts in `onix/utils/obs.py`. `trace_scope` and `maybe_trace` keep their names
 but wrap `torch.profiler`: a span is a `record_function` range, and a
 trace is written only when the caller or ONIX_PROFILE_DIR names a
 directory.
@@ -14,6 +14,7 @@ import contextlib
 import json
 import os
 import pathlib
+import threading
 import time
 
 
@@ -98,3 +99,76 @@ class Meter:
     def rate(self) -> float:
         dt = self.seconds
         return self.items / dt if dt > 0 else 0.0
+
+
+class CounterRegistry:
+    """Process-wide named event counters — the one place every
+    resilience event (retry, quarantine, salvage, injected fault,
+    checkpoint digest mismatch) is tallied, so watcher stats, streaming
+    stage reports, and bench/scale manifests all read the same numbers
+    instead of each keeping a private ledger. Thread-safe; names are
+    dotted paths (`ingest.quarantined`, `salvage.skipped_records`)."""
+
+    #: Lock discipline: these attributes change only under `_lock`.
+    GUARDED_BY = {"_counts": "_lock", "_observer": "_lock"}
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counts: dict[str, int] = {}
+        # Optional delta observer (utils/telemetry.py installs the
+        # flight-recorder feed here at import): called as
+        # observer(name, delta, total) AFTER the lock is released, so
+        # an observer can never deadlock the registry. None = off.
+        self._observer = None
+
+    def set_observer(self, fn) -> None:
+        with self._lock:
+            self._observer = fn
+
+    def inc(self, name: str, n: int = 1) -> int:
+        with self._lock:
+            self._counts[name] = total = self._counts.get(name, 0) + int(n)
+        obs_fn = self._observer
+        if obs_fn is not None:
+            obs_fn(name, int(n), total)
+        return total
+
+    def get(self, name: str) -> int:
+        with self._lock:
+            return self._counts.get(name, 0)
+
+    def note_max(self, name: str, value: int) -> int:
+        """High-water-mark counter: keep the LARGEST value ever noted
+        (e.g. `serve.queue_depth_peak`). Same namespace and snapshot
+        path as the event counters, so manifests carry gauges and
+        tallies through one registry."""
+        moved = False
+        with self._lock:
+            cur = self._counts.get(name, 0)
+            if int(value) > cur:
+                self._counts[name] = int(value)
+                cur = int(value)
+                moved = True
+        obs_fn = self._observer
+        if moved and obs_fn is not None:
+            obs_fn(name, 0, cur)
+        return cur
+
+    def snapshot(self, prefix: str = "") -> dict[str, int]:
+        """Copy of the current counts (optionally only names under
+        `prefix`) — what manifests embed."""
+        with self._lock:
+            return {k: v for k, v in sorted(self._counts.items())
+                    if k.startswith(prefix)}
+
+    def reset(self, prefix: str = "") -> None:
+        with self._lock:
+            if not prefix:
+                self._counts.clear()
+            else:
+                for k in [k for k in self._counts if k.startswith(prefix)]:
+                    del self._counts[k]
+
+
+#: The process-global registry (tests reset() it between cases).
+counters = CounterRegistry()

@@ -52,12 +52,40 @@ def test_port_imports_neither_jax_nor_onix(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+SERVING_MODULES = ("onix_torch.feedback.filter", "onix_torch.oa.feedback",
+                   "onix_torch.oa.serve", "onix_torch.serving.model_bank",
+                   "onix_torch.models.fused_serve",
+                   "onix_torch.models.compaction", "onix_torch.checkpoint",
+                   "onix_torch.utils.faults", "onix_torch.utils.resilience",
+                   "onix_torch.utils.telemetry")
+
+
 def test_port_package_list_is_not_empty():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for must in ("onix_torch/models/lda_gibbs.py",
                  "onix_torch/models/sample_count.py",
-                 "onix_torch/pipelines/run.py", "chip_smoke.py"):
+                 "onix_torch/pipelines/run.py", "chip_smoke.py",
+                 *(m.replace(".", "/") + ".py" for m in SERVING_MODULES)):
         assert must in names
+
+
+def test_serving_modules_load_neither_jax_nor_onix():
+    probe = subprocess.run(
+        [sys.executable, "-c",
+         f"import sys; import {', '.join(SERVING_MODULES)}; "
+         "print(sorted(m for m in sys.modules "
+         "if m.split('.')[0] in ('jax', 'onix')))"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert probe.returncode == 0, probe.stderr[-2000:]
+    assert probe.stdout.strip() == "[]"
+
+
+def test_k2_cpu_tensors_count_no_kernel_launch():
+    from onix_torch.models import fused_serve as fs
+    before = fs.launches
+    got = fs.fused_bottom_k_scores(torch.rand(300), tol=0.5, max_results=7)
+    assert fs.launches == before
+    assert got.indices.dtype == torch.int32 and got.scores.shape == (7,)
 
 
 def test_default_device_raises_without_a_card(monkeypatch):

@@ -211,6 +211,17 @@ def test_left_out_paths_raise(day, tmp_path, override, engine):
     Store(tmp_path).write("flow", DATE, table)
     cfg = tcfg.load_config(None, OVERRIDES + [f"store.root={tmp_path}"]
                            + ([override] if override else []))
+    if override == "serving.save_fitted=true":
+        # Ported with the serving slice: the run no longer raises; it
+        # saves the day's model where the reference's loader reads it,
+        # and a re-fit bumps the stored epoch.
+        from onix.checkpoint import load_model
+        for epoch in (0, 1):
+            assert trun.run_scoring(cfg, engine=engine, device="cpu") == 0
+            saved = load_model(cfg.serving.models_dir, "flow/20160708")
+            assert saved.meta["model_epoch"] == epoch
+        assert saved.arrays["theta"].shape[1] == 5
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         trun.run_scoring(cfg, engine=engine, device="cpu")
 
