@@ -8,11 +8,19 @@ non-zero and prints no result line):
 
 1. build   — compile every kernel in onix_torch/csrc with nvcc (sm_90a)
              and print the build seconds and ptxas report.
-2. K1      — call kernel K1's wrapper on the card at the main path's
+2. K1      — call kernel K1's TPU-contract entry point
+             (`sample_count_block`) on the card at the main path's
              shapes (and a ragged and a wide-vocabulary shape), hold it
              against its plain PyTorch version on the same inputs, and
              time both with CUDA events (and the kernel with
-             torch.profiler).
+             torch.profiler). Then K1's in-place block step
+             (`gibbs_block_step_`, what the fit runs) against its plain
+             version from the same snapshot at those shapes, an odd K
+             and a high-collision one (B 65,536 on D 16 x V 32, 20
+             repeats):
+             z, n_dk, n_wk and n_k exactly equal, every repeat
+             identical; the call's time, each kernel's device time, the
+             bound and the plain version's time.
 3. K2      — kernel K2 (fused serving) against its plain version at
              every static variant, at the harness bank wave and the
              2^21-event day row, with 64- and 4,096-entry filters and
@@ -20,7 +28,8 @@ non-zero and prints no result line):
              times, bound, and torch.topk as a selection-half yardstick.
 4. fit     — a small fit on the card and on the CPU from one noise
              stream: the chains must agree; then two sweeps at the
-             main-path shape, timed and profiled by kernel.
+             main-path shape, timed and profiled by kernel, with the
+             device launches per block step.
 5. slice   — write a synthetic flow day of 10^6 events into a temporary
              store, run `onix_torch.cli score 2016-07-08 flow -s
              serving.save_fitted=true` at the default config on the
@@ -57,6 +66,19 @@ HERE = pathlib.Path(__file__).resolve().parent
 # 65,536) on the 10^6-event flow day (D = 20,575 docs, V = 504 words).
 MAIN_B, MAIN_K, MAIN_V, MAIN_D = 65_536, 20, 504, 20_575
 ALPHA, ETA = 1.2, 0.01
+# K1's shapes: (label, B, K, V, D, padding tokens). The high-collision
+# block puts every token on 16 documents x 32 words; an odd K takes the
+# sample kernel's scalar form (K % 4 != 0), the others its vector form,
+# but for 5,000 topics: too many for a token's scores in a CTA's shared
+# memory, they take the one-token-a-CTA row form.
+K1_SHAPES = [
+    ("main path", MAIN_B, MAIN_K, MAIN_V, MAIN_D, MAIN_B // 10),
+    ("ragged", 1000, MAIN_K, MAIN_V, 300, 137),
+    ("wide vocabulary", MAIN_B, MAIN_K, 8192, MAIN_D, 0),
+    ("high collision", MAIN_B, MAIN_K, 32, 16, 0),
+    ("odd topics", 4096, 7, 300, 500, 100),
+    ("many topics", 2000, 5000, 64, 100, 100),
+]
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s
 # and float32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -169,13 +191,18 @@ def k1_inputs(b: int, k: int, v: int, d: int, pad: int, use_gumbel: bool,
     n_dk.view(-1).index_add_(0, docs[real].long() * k + zr, one)
     n_wk.view(-1).index_add_(0, words[real].long() * k + zr, one)
     n_k = n_wk.sum(dim=0, dtype=torch.int32)
-    u = torch.rand((b, k), generator=g, device=dev)
-    if use_gumbel:
-        noise = -torch.log(-torch.log(u.clamp_min(
-            torch.finfo(torch.float32).tiny)))
-    else:
-        noise = u.clamp_min(1e-38)
+    noise = k1_noise(g, b, k, use_gumbel)
     return n_dk, n_wk, n_k, noise, docs, words, z_old, mask
+
+
+def k1_noise(g, b: int, k: int, use_gumbel: bool):
+    """[b, k] f32 noise on the card: Gumbel, or uniforms for the race."""
+    import torch
+    u = torch.rand((b, k), generator=g, device="cuda")
+    if use_gumbel:
+        return -torch.log(-torch.log(u.clamp_min(
+            torch.finfo(torch.float32).tiny)))
+    return u.clamp_min(1e-38)
 
 
 def _fmt(parts: dict) -> str:
@@ -215,17 +242,11 @@ def k1_bound(n_dk, n_wk, noise, d, w, mask, use_gumbel):
             else "operations", nbytes, ops)
 
 
-def phase_kernels(card: str) -> dict:
+def phase_kernels(card: str) -> None:
     import torch
 
     from onix_torch.models import sample_count as sc
-    shapes = [
-        ("main path", MAIN_B, MAIN_K, MAIN_V, MAIN_D, MAIN_B // 10),
-        ("ragged", 1000, MAIN_K, MAIN_V, 300, 137),
-        ("wide vocabulary", MAIN_B, MAIN_K, 8192, MAIN_D, 0),
-    ]
-    row = None
-    for si, (label, b, k, v, d, pad) in enumerate(shapes):
+    for si, (label, b, k, v, d, pad) in enumerate(K1_SHAPES[:3]):
         for use_gumbel in (True, False):
             sampler = "gumbel" if use_gumbel else "race"
             args = k1_inputs(b, k, v, d, pad, use_gumbel, seed=17 + si)
@@ -255,8 +276,6 @@ def phase_kernels(card: str) -> dict:
             if int((z[mask == 0] != z_old[mask == 0]).sum()):
                 raise AssertionError(f"K1 {label}/{sampler}: a padding "
                                      "token changed topic")
-            err = max(int((z - z_p).abs().max()),
-                      int((d_wk - d_wk_p).abs().max()))
             def kern():
                 return sc.sample_count_block(*args, **kw)
 
@@ -273,12 +292,129 @@ def phase_kernels(card: str) -> dict:
                       f"profiler: {_fmt(parts) or 'no device time'}; "
                       f"bound {bound_ms:.5f} ms by {bound_by} "
                       f"({nbytes} B, {ops} ops)")
+
+
+def step_bound(d, w, z_old, z_new, mask, k, use_gumbel):
+    """(bound_ms, bound_by, bytes, ops) for one in-place block step on
+    this data: what the function must move, not what this design
+    moves. Bytes: the mask of every token, the real tokens' noise rows,
+    ids and z_old, z written for the tokens whose topic changed, the
+    n_dk and n_wk rows the real tokens touch read once, the rows of the
+    tokens whose topic changed written once, n_k read and written. The
+    sample kernel's z_new scratch is this design's choice and is not
+    counted. Operations as `k1_bound`."""
+    import torch
+    real = mask > 0
+    moved = real & (z_new != z_old)
+    n_real, n_moved = int(real.sum()), int(moved.sum())
+    b = int(mask.shape[0])
+
+    def rows(sel):
+        return (int(torch.unique(d[sel]).numel())
+                + int(torch.unique(w[sel]).numel()))
+    nbytes = (b * 4 + n_real * (k * 4 + 12) + n_moved * 4
+              + (rows(real) + rows(moved)) * k * 4 + 2 * k * 4)
+    ops = n_real * k * (12 if use_gumbel else 10)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
+
+
+def phase_step(card: str) -> dict:
+    """K1's in-place block step against its plain version on the card,
+    each from its own copy of one snapshot: z, n_dk, n_wk and n_k must
+    be exactly equal, and z must be what `sample_count_block` draws from
+    the snapshot. The high-collision shape runs the step 20 times from
+    the same snapshot and every repeat must be identical: a step that
+    read counts its own block had changed would draw by the schedule.
+    Times the call (CUDA events), each kernel (profiler) and the plain
+    version, each stepping its own chain on with fresh noise every call
+    (the same noise again would redraw the same topics and move almost
+    no token); returns the main path's row of the kernels line."""
+    import itertools
+
+    import torch
+
+    from onix_torch.models import sample_count as sc
+    row = None
+    for si, (label, b, k, v, d, pad) in enumerate(K1_SHAPES):
+        repeats = 20 if label == "high collision" else 1
+        for use_gumbel in (True, False):
+            sampler = "gumbel" if use_gumbel else "race"
+            n_dk, n_wk, n_k, noise, docs, words, z0, mask = k1_inputs(
+                b, k, v, d, pad, use_gumbel, seed=31 + si)
+            kw = dict(alpha=ALPHA, eta=ETA, v_eta=v * ETA,
+                      use_gumbel=use_gumbel)
+            snap = (n_dk, n_wk, n_k, z0)
+
+            def fresh():
+                return [t.clone() for t in snap]
+
+            def step(st, fn=sc.gibbs_block_step_, g=noise):
+                fn(st[0], st[1], st[2], st[3], g, docs, words, mask, **kw)
+            want = fresh()
+            step(want, sc.gibbs_block_step_plain)
+            z_snap, _ = sc.sample_count_block(n_dk, n_wk, n_k, noise, docs,
+                                              words, z0, mask, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(z_snap, want[3]):
+                raise AssertionError(f"K1 step {label}/{sampler}: the plain "
+                                     "step's z is not the snapshot's draw")
+            first = None
+            for r in range(repeats):
+                got = fresh()
+                step(got)
+                torch.cuda.synchronize()
+                for name, a, e in zip(("n_dk", "n_wk", "n_k", "z"), got,
+                                      want):
+                    if not torch.equal(a, e):
+                        bad = int((a != e).sum())
+                        raise AssertionError(
+                            f"K1 step {label}/{sampler} repeat {r}: {name} "
+                            f"differs from the plain step at {bad} places")
+                if first is None:
+                    first = got
+                elif not all(torch.equal(a, e) for a, e in zip(got, first)):
+                    raise AssertionError(f"K1 step {label}/{sampler}: "
+                                         f"repeat {r} differs from repeat 0")
+            n_moved = int(((want[3] != z0) & (mask > 0)).sum())
+            err = max(float((a - e).abs().max()) for a, e in zip(first, want))
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(41 + si)
+            draws = itertools.cycle([k1_noise(gen, b, k, use_gumbel)
+                                     for _ in range(8)])
+            work, plain_work = fresh(), fresh()
+            ms = event_ms(lambda: step(work, g=next(draws)))
+            plain_ms = event_ms(lambda: step(
+                plain_work, sc.gibbs_block_step_plain, next(draws)))
+            parts = profiled_ms(lambda: step(work, g=next(draws)))
+            sample_ms = sum(t for n, t in parts.items()
+                            if "sample_" in n)
+            apply_ms = sum(t for n, t in parts.items() if "apply_kernel" in n)
+            bound_ms, bound_by, nbytes, ops = step_bound(
+                docs, words, z0, want[3], mask, k, use_gumbel)
+            say(card, f"K1 step {label} B={b} K={k} V={v} D={d} pad={pad} "
+                      f"{sampler}: z, n_dk, n_wk, n_k equal to plain "
+                      f"({n_moved} tokens moved"
+                      + (f", {repeats} repeats identical" if repeats > 1
+                         else "")
+                      + f"); call {ms:.5f} ms, plain {plain_ms:.5f} ms "
+                      f"(CUDA events, median of 30); kernels (profiler): "
+                      f"sample {sample_ms:.5f} ms, apply {apply_ms:.5f} ms, "
+                      f"{len(parts)} device op(s) a call; bound "
+                      f"{bound_ms:.5f} ms by {bound_by} ({nbytes} B, {ops} "
+                      f"ops)")
+            if not (sample_ms > 0 and apply_ms > 0 and len(parts) == 2):
+                raise AssertionError(f"K1 step {label}/{sampler}: the "
+                                     f"call ran {sorted(parts)}, not the "
+                                     "sample and apply kernels alone")
             if si == 0 and use_gumbel:
                 # The main path runs the Gumbel form on the card.
-                row = {"name": "sample_count_block", "route": "cuda",
+                row = {"name": "gibbs_block_step_", "route": "cuda",
                        "source": "onix_torch/csrc/sample_count.cu",
                        "replaces": "onix/models/pallas_gibbs.py:148",
-                       "launches": None, "max_abs_err": float(err),
+                       "launches": None, "max_abs_err": err,
                        "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by,
                        "library_ms": None}
@@ -634,7 +770,7 @@ def phase_fit_profile(card: str) -> None:
 
     from onix_torch.config import LDAConfig
     from onix_torch.corpus import synthetic_lda_corpus
-    from onix_torch.models.lda_gibbs import GibbsLDA
+    from onix_torch.models.lda_gibbs import GibbsLDA, TorchNoise, block_step
     corpus, _, _ = synthetic_lda_corpus(MAIN_D, MAIN_V, MAIN_K,
                                         mean_doc_len=97, seed=5)
     model = GibbsLDA(LDAConfig(n_sweeps=2, burn_in=0), corpus.n_docs,
@@ -654,11 +790,54 @@ def phase_fit_profile(card: str) -> None:
                   if e.device_type == DeviceType.CUDA
                   and e.self_device_time_total > 0), reverse=True)
     busy = sum(ms for ms, _, _ in dev)
-    say(card, f"fit profile: {corpus.n_tokens} tokens, 2 sweeps, wall "
-              f"{wall * 1e3:.1f} ms unprofiled; device busy {busy:.1f} ms "
-              f"(profiled run)")
+    docs, words, mask = model.prepare(corpus)
+    n_steps = 2 * docs.shape[0]
+    say(card, f"fit profile: {corpus.n_tokens} tokens, 2 sweeps "
+              f"({n_steps} block steps), wall {wall * 1e3:.1f} ms "
+              f"unprofiled; device busy {busy:.1f} ms (profiled run); "
+              f"{sum(c for _, c, _ in dev) / n_steps:.2f} device ops a "
+              f"block step over the whole fit")
     for ms, count, key in dev[:6]:
         say(card, f"fit profile:   {ms:9.3f} ms  x{count:<6d} {key[:60]}")
+    # The block step alone, and the noise draw that feeds it.
+    cfg = model.config
+    st = model.fit(corpus, n_sweeps=1)["state"]
+    noise = TorchNoise(9, "cuda")
+    nb, b = docs.shape
+    blocks = [noise.block(b, MAIN_K, True) for _ in range(nb)]
+
+    def draws():
+        for _ in range(nb):
+            noise.block(b, MAIN_K, True)
+
+    def steps():
+        for i in range(nb):
+            block_step(st, i, docs[i], words[i], mask[i], blocks[i],
+                       alpha=cfg.alpha, eta=cfg.eta,
+                       v_eta=corpus.n_vocab * cfg.eta, use_gumbel=True)
+    for label, fn in (("noise draw", draws), ("block step", steps)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        done = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [(e.count, e.key) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+        per = sum(c for c, _ in ops) / nb
+        say(card, f"fit profile: {label}: {per:.2f} device launches a "
+                  f"block step ({'; '.join(k[:40] for _, k in ops)}); "
+                  f"host enqueue {host / nb * 1e3:.4f} ms, to done "
+                  f"{done / nb * 1e3:.4f} ms a block step (unprofiled, "
+                  f"{nb} steps)")
+        if label == "block step" and per != 2:
+            raise AssertionError("the fit's block step is not the two K1 "
+                                 "kernels alone")
 
 
 # -- phase 5 ----------------------------------------------------------------
@@ -1043,7 +1222,8 @@ def main() -> int:
               f"{torch.cuda.device_count()} device(s)")
     t0 = time.perf_counter()
     phase_build(card)
-    rows = phase_kernels(card)
+    phase_kernels(card)
+    rows = phase_step(card)
     rows.update(phase_k2_kernel(card))
     phase_fit(card)
     phase_fit_profile(card)

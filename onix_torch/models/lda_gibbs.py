@@ -4,10 +4,11 @@
 Tokens are sampled in blocks of `block_size`: within a block every
 token sees counts that exclude its own assignment but are stale with
 respect to its block-mates, and the counts are updated exactly between
-blocks. Each block step goes through kernel K1
-(`onix_torch.models.sample_count`), which draws the new topics and the
-[V, K] n_wk delta; the n_dk delta goes in with `index_add_` and n_k
-with the delta's column sums, as in the reference (`lda_gibbs.py:768`).
+blocks. Each block step is one call of kernel K1's in-place entry
+point (`onix_torch.models.sample_count.gibbs_block_step_`): it draws the
+new topics from the block-start counts, then adds the block's deltas
+to n_dk, n_wk and n_k and writes the topics back, as the reference's
+block step does (`lda_gibbs.py:749-770`).
 
 Where the reference is functional (a `GibbsState` NamedTuple threaded
 through `lax.scan`), the port is a Python loop that updates one
@@ -36,8 +37,7 @@ from onix_torch import not_ported
 from onix_torch.config import LDAConfig
 from onix_torch.corpus import Corpus
 from onix_torch.device import resolve_device
-from onix_torch.models.sample_count import (sample_count_block,
-                                             topic_delta)
+from onix_torch.models.sample_count import gibbs_block_step_
 
 # Auto superstep size (config.lda.superstep == 0): the reference's
 # SUPERSTEP_DEFAULT, which sets the ll_history cadence.
@@ -133,17 +133,11 @@ def init_state(docs: torch.Tensor, words: torch.Tensor, mask: torch.Tensor,
 def block_step(state: GibbsState, i: int, d: torch.Tensor, w: torch.Tensor,
                m: torch.Tensor, noise_block: torch.Tensor, *, alpha: float,
                eta: float, v_eta: float, use_gumbel: bool) -> None:
-    """Sample block `i` of the sweep and fold its deltas into the
-    counts, in place."""
-    z_old = state.z[i]
-    z_new, d_wk = sample_count_block(
-        state.n_dk, state.n_wk, state.n_k, noise_block, d, w, z_old, m,
-        alpha=alpha, eta=eta, v_eta=v_eta, use_gumbel=use_gumbel)
-    delta = topic_delta(z_new, z_old, state.n_k.shape[0])
-    state.n_dk.index_add_(0, d, delta)
-    state.n_wk += d_wk
-    state.n_k += delta.sum(dim=0, dtype=torch.int32)
-    state.z[i] = z_new
+    """Sample block `i` of the sweep from the counts as they stand and
+    fold its deltas into the counts, in place: one call of K1."""
+    gibbs_block_step_(state.n_dk, state.n_wk, state.n_k, state.z[i],
+                      noise_block, d, w, m, alpha=alpha, eta=eta,
+                      v_eta=v_eta, use_gumbel=use_gumbel)
 
 
 def sweep(state: GibbsState, docs: torch.Tensor, words: torch.Tensor,

@@ -1,17 +1,25 @@
-"""Kernel K1: fused categorical sample + n_wk count delta for one Gibbs
-token block.
+"""Kernel K1: one collapsed-Gibbs token block, sampled from the
+block-start counts, with its count deltas.
 
-The port of `onix/models/pallas_gibbs.py:148` `sample_count_block`.
-Three pieces live here:
+The port of `onix/models/pallas_gibbs.py:148` `sample_count_block` and,
+on the card, of the count updates around it in the reference's block
+step (`onix/models/lda_gibbs.py:749-770`). Both entry points are one C
+function of `onix_torch/csrc/sample_count.cu`, which launches a sample
+kernel (reads the counts, writes z_new) and then an apply kernel
+(writes the deltas), so every token is drawn from the counts as they
+stood at the block's start:
 
-- `sample_count_block`, the wrapper. On CUDA tensors it launches the
-  hand-written kernel `onix_torch/csrc/sample_count.cu` or raises; on
-  CPU tensors it runs `sample_count_plain`. Nothing falls back.
-- `sample_count_plain`, the same function in PyTorch ops
-  (`sample_scores`, argmax, `count_delta`). The CPU tests use it, and on
-  the card it is what the kernel is held against.
-- `launches`, the count of kernel launches (a plain integer). Only the
-  wrapper's kernel branch adds to it.
+- `sample_count_block`, the TPU kernel's contract: returns
+  (z_new, d_wk) and changes nothing it was given.
+- `gibbs_block_step_`, the fit's block step: updates n_dk, n_wk, n_k
+  and the block's z in place (the trailing `_` is PyTorch's in-place
+  mark).
+
+On CUDA tensors each launches the kernels or raises; on CPU tensors it
+runs its plain version (`sample_count_plain`, `gibbs_block_step_plain`:
+the same function in PyTorch ops, which the CPU tests use and the card
+holds the kernels against). Nothing falls back. `launches` counts the
+calls that launched the kernels (a plain integer): one per block.
 
 Unlike the Pallas kernel, which took pre-gathered [B, K] rows, both
 forms take the whole count tables and the token ids and gather the rows
@@ -24,7 +32,7 @@ import ctypes
 
 import torch
 
-#: Kernel launches since the count was last set to 0.
+#: Calls that launched the kernels since the count was last set to 0.
 launches = 0
 
 
@@ -82,7 +90,23 @@ def count_delta(z_new, z_old, w, n_rows: int, k_topics: int):
     return d_wk
 
 
-def _check(n_dk, n_wk, n_k, noise, d, w, z_old, mask):
+def gibbs_block_step_plain(n_dk, n_wk, n_k, z, noise, d, w, mask, *,
+                           alpha: float, eta: float, v_eta: float,
+                           use_gumbel: bool) -> None:
+    """The block step in PyTorch ops, in place: every token drawn from
+    the counts as they are (`sample_count_plain`), then the deltas
+    added, as the reference's block step does."""
+    z_new, d_wk = sample_count_plain(n_dk, n_wk, n_k, noise, d, w, z, mask,
+                                     alpha=alpha, eta=eta, v_eta=v_eta,
+                                     use_gumbel=use_gumbel)
+    delta = topic_delta(z_new, z, n_k.shape[0])
+    n_dk.index_add_(0, d, delta)
+    n_wk += d_wk
+    n_k += delta.sum(dim=0, dtype=torch.int32)
+    z.copy_(z_new)
+
+
+def _check(n_dk, n_wk, n_k, noise, d, w, z, mask, z_name: str):
     k_topics = n_dk.shape[1] if n_dk.dim() == 2 else -1
     b = d.shape[0] if d.dim() == 1 else -1
     want = {
@@ -92,7 +116,7 @@ def _check(n_dk, n_wk, n_k, noise, d, w, z_old, mask):
         "noise": (noise, torch.float32, (b, k_topics)),
         "d": (d, torch.int32, (b,)),
         "w": (w, torch.int32, (b,)),
-        "z_old": (z_old, torch.int32, (b,)),
+        z_name: (z, torch.int32, (b,)),
         "mask": (mask, torch.float32, (b,)),
     }
     device = n_dk.device
@@ -106,6 +130,8 @@ def _check(n_dk, n_wk, n_k, noise, d, w, z_old, mask):
             raise ValueError(f"{name} is on {t.device}, n_dk on {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"K1 runs on cuda or cpu, not {device}")
 
 
 def sample_count_block(n_dk, n_wk, n_k, noise, d, w, z_old, mask, *,
@@ -126,44 +152,74 @@ def sample_count_block(n_dk, n_wk, n_k, noise, d, w, z_old, mask, *,
     Returns (z_new int32 [B], d_wk int32 [V, K]) with
     d_wk = sum_t onehot(w_t) (x) (onehot(z_new_t) - onehot(z_old_t)).
 
-    CUDA tensors go through the kernel, CPU tensors through
+    CUDA tensors go through the kernels, CPU tensors through
     `sample_count_plain`; anything else raises."""
-    global launches
-    _check(n_dk, n_wk, n_k, noise, d, w, z_old, mask)
-    device = n_dk.device
-    if device.type == "cpu":
+    _check(n_dk, n_wk, n_k, noise, d, w, z_old, mask, "z_old")
+    kw = dict(alpha=alpha, eta=eta, v_eta=v_eta, use_gumbel=use_gumbel)
+    if n_dk.device.type == "cpu":
         return sample_count_plain(n_dk, n_wk, n_k, noise, d, w, z_old,
-                                  mask, alpha=alpha, eta=eta, v_eta=v_eta,
-                                  use_gumbel=use_gumbel)
-    if device.type != "cuda":
-        raise ValueError(f"sample_count_block runs on cuda or cpu, "
-                         f"not {device}")
-    b = int(d.shape[0])
+                                  mask, **kw)
     z_new = torch.empty_like(z_old)
     d_wk = torch.zeros_like(n_wk)
-    if b == 0:
-        return z_new, d_wk
-    fn = _kernel()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(n_dk.data_ptr(), n_wk.data_ptr(), n_k.data_ptr(),
-                 noise.data_ptr(), d.data_ptr(), w.data_ptr(),
-                 z_old.data_ptr(), mask.data_ptr(), z_new.data_ptr(),
-                 d_wk.data_ptr(), b, int(n_dk.shape[1]), float(alpha),
-                 float(eta), float(v_eta), int(bool(use_gumbel)), stream)
-    if err != 0:
-        raise RuntimeError(f"sample_count kernel launch failed: CUDA "
-                           f"error {err}")
-    launches += 1
+    _launch(n_dk, n_wk, n_k, noise, d, w, z_old, mask, z_new,
+            word=d_wk, **kw)
     return z_new, d_wk
 
 
-def _kernel():
+def gibbs_block_step_(n_dk, n_wk, n_k, z, noise, d, w, mask, *,
+                      alpha: float, eta: float, v_eta: float,
+                      use_gumbel: bool) -> None:
+    """One Gibbs block step, in place: draw every token of the block
+    from the counts as they stand now, then add its +-1 to n_dk[d],
+    n_wk[w] and n_k and write the new topics into `z`.
+
+    Args as `sample_count_block`, with `z` int32 [B] the block's current
+    topics (a row of the fit's [n_blocks, B] z), updated in place.
+
+    CUDA tensors go through the kernels (one call: a sample kernel, then
+    an apply kernel, and no other launch), CPU tensors through
+    `gibbs_block_step_plain`; anything else raises."""
+    _check(n_dk, n_wk, n_k, noise, d, w, z, mask, "z")
+    kw = dict(alpha=alpha, eta=eta, v_eta=v_eta, use_gumbel=use_gumbel)
+    if n_dk.device.type == "cpu":
+        gibbs_block_step_plain(n_dk, n_wk, n_k, z, noise, d, w, mask, **kw)
+        return
+    _launch(n_dk, n_wk, n_k, noise, d, w, z, mask, torch.empty_like(z),
+            word=n_wk, doc=n_dk, nk=n_k, z_out=z, **kw)
+
+
+def _launch(n_dk, n_wk, n_k, noise, d, w, z_old, mask, z_new, *, word,
+            doc=None, nk=None, z_out=None, alpha: float, eta: float,
+            v_eta: float, use_gumbel: bool) -> None:
+    """One call of `onix_gibbs_block` on the current stream: sample into
+    `z_new`, then apply the deltas to the non-None targets."""
+    global launches
+    b, k_topics = int(d.shape[0]), int(n_dk.shape[1])
+    if b == 0:
+        return
+    lib = _library()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    device = n_dk.device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.onix_gibbs_block(
+            n_dk.data_ptr(), n_wk.data_ptr(), n_k.data_ptr(),
+            noise.data_ptr(), d.data_ptr(), w.data_ptr(), z_old.data_ptr(),
+            mask.data_ptr(), z_new.data_ptr(), ptr(word), ptr(doc), ptr(nk),
+            ptr(z_out), b, k_topics, float(alpha), float(eta), float(v_eta),
+            int(bool(use_gumbel)), stream)
+    if err != 0:
+        raise RuntimeError(f"K1 kernel launch failed: CUDA error {err}")
+    launches += 1
+
+
+def _library():
     from onix_torch import kernels
     lib = kernels.load("sample_count")
-    fn = lib.onix_sample_count_block
-    if fn.argtypes is None:
+    if lib.onix_gibbs_block.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, f, f, f, i, p]
-        fn.restype = ctypes.c_int
-    return fn
+        lib.onix_gibbs_block.argtypes = [p] * 13 + [i, i, f, f, f, i, p]
+        lib.onix_gibbs_block.restype = ctypes.c_int
+    return lib
