@@ -54,6 +54,7 @@ from __future__ import annotations
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -128,9 +129,10 @@ def event_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def profiled_ms(fn, reps: int = 30) -> dict:
-    """{kernel: ms per call of `fn()`} from torch.profiler (CUPTI):
-    the device time of each kernel and memset `fn` launches. Empty when
+def profiled(fn, reps: int = 30) -> tuple[dict, float]:
+    """({device op: ms per call}, device ops per call) of `fn()` from
+    torch.profiler (CUPTI): the device time of each kernel and memset
+    `fn` launches, and how many it launches a call. Empty and 0 when
     the profiler records no device time."""
     import torch
     from torch.autograd import DeviceType
@@ -142,24 +144,37 @@ def profiled_ms(fn, reps: int = 30) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / reps / 1e3
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0}
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    return ({e.key: e.self_device_time_total / reps / 1e3 for e in ops},
+            sum(e.count for e in ops) / reps)
+
+
+def profiled_ms(fn, reps: int = 30) -> dict:
+    """{kernel: ms per call of `fn()`}, as `profiled`."""
+    return profiled(fn, reps)[0]
 
 
 # -- phase 1 ----------------------------------------------------------------
 
 def phase_build(card: str) -> None:
+    """Compile every kernel source, one nvcc each, all at once; print
+    each kernel's ptxas report."""
     from onix_torch import kernels
     t0 = time.perf_counter()
-    libs = kernels.build_all()
-    say(card, f"build: {len(libs)} kernel source(s) in "
+    names = kernels.sources()
+    kernels.build_all(names)
+    say(card, f"build: {len(names)} kernel source(s) in "
               f"{time.perf_counter() - t0:.2f} s")
-    for name in libs:
+    for name in names:
+        fn = None
         for line in kernels.build_log(name).splitlines():
+            if "Compiling entry function" in line:
+                hit = re.search(r"[a-z_]*kernel", line)
+                fn = hit.group(0) if hit else line.strip()
             if "registers" in line or "spill" in line:
-                say(card, f"build: {name}: {line.strip()}")
+                say(card, f"build: {name}: {fn}: {line.strip()}")
 
 
 # -- phase 2 ----------------------------------------------------------------
@@ -511,14 +526,18 @@ def k2_bound(kw, n_real: int):
 
 
 def k2_cases():
-    """(label, fused_call kwargs) for every K2 case the phase checks.
-    Shapes: the harness bank wave (64 rows x 2,048 events, D_pad 2,048,
-    V_pad 1,024, K 20), the 2^21-event day row (D_pad 32,768, V_pad
-    512), and small rows for every other static variant."""
+    """(label, fused_call kwargs) for every K2 case the phase checks;
+    `timed` marks the cases it also times. Shapes: the harness bank wave
+    (64 rows x 2,048 events, D_pad 2,048, V_pad 1,024, K 20), the
+    2^21-event day row and the day's hourly wave (D_pad 32,768, V_pad
+    512), a wave at the row form's largest N, the cases the selection
+    must get right at both forms (`k2_adversarial`), and small rows for
+    every other static variant."""
     import numpy as np
     import torch
 
     from onix_torch.feedback.filter import FilterTables, pack_pair
+    from onix_torch.models import fused_serve as fs
     g = torch.Generator(device="cuda")
     g.manual_seed(23)
     rng = np.random.default_rng(23)
@@ -538,11 +557,19 @@ def k2_cases():
     mask = torch.ones((64, 2048), device=dev)
     mask[-1, 1500:] = 0.0
     base = dict(ops=(th, ph, d, w), mask=mask, mode="dot", slots=slots,
-                max_results=2000, tol=1.1, shape=(64, 2048))
+                max_results=2000, tol=1.1, shape=(64, 2048), timed=True)
     cases.append(("bank wave 64x2048", dict(base, filt=None)))
     for f in (64, 4096):
         cases.append((f"bank wave 64x2048 filter F={f}",
                       dict(base, filt=k2_filter(rng, 64, f, d, w))))
+    # A bank wave at the row form's largest N.
+    n_max = max(n for n in (1 << e for e in range(6, 22))
+                if fs.kernel_form(64, n, 2000, 20) == "row")
+    dx, wx = ints(2048, (64, n_max)), ints(1024, (64, n_max))
+    cases.append((f"bank wave 64x{n_max} (row form's largest N)",
+                  dict(base, ops=(th, ph, dx, wx), filt=None,
+                       mask=torch.ones((64, n_max), device=dev),
+                       shape=(64, n_max))))
     # The day row: one request of 2^21 events, 2e6 real.
     th_d = dirichlet_rows(g, 32768, 20, 0.5)[None]
     ph_d = dirichlet_rows(g, 20, 512, 0.5).T.contiguous()[None]
@@ -553,13 +580,35 @@ def k2_cases():
     day = dict(ops=(th_d, ph_d, dd, wd), mask=md, mode="dot",
                slots=torch.zeros(1, dtype=torch.int32, device=dev),
                row_len=torch.tensor([real], dtype=torch.int32, device=dev),
-               max_results=2000, tol=1.1, shape=(1, n_day))
+               max_results=2000, tol=1.1, shape=(1, n_day), timed=True)
     cases.append(("day row 2^21", dict(day, filt=None)))
     for f in (64, 4096):
         cases.append((f"day row 2^21 filter F={f}",
                       dict(day, filt=k2_filter(rng, 1, f, dd, wd))))
     cases.append(("day row 2^21 M=100000",
                   dict(day, filt=None, max_results=100_000)))
+    # The day's hourly wave, as the day batch runs it: 24 requests of
+    # about 83,000 events in R_pad 32 x N_pad 2^17, one tenant.
+    n_h = 1 << 17
+    lens = torch.randint(80_000, 86_000, (32,), generator=g, device=dev,
+                         dtype=torch.int32)
+    lens[24:] = 0
+    mh = (torch.arange(n_h, device=dev)[None, :] < lens[:, None]).float()
+    cases.append(("hourly wave 32x2^17", dict(
+        ops=(th_d, ph_d, ints(20575, (32, n_h)), ints(504, (32, n_h))),
+        mask=mh, mode="dot", filt=None,
+        slots=torch.zeros(32, dtype=torch.int32, device=dev), row_len=lens,
+        max_results=2000, tol=1.1, shape=(32, n_h), timed=True)))
+    # A tie group of 3,000 equal scores cut at M = 2,000 in a 2^21 row.
+    st = 0.01 + 0.99 * torch.rand((1, n_day), generator=g, device=dev)
+    pos = torch.randperm(n_day, generator=g, device=dev)
+    st[0, pos[:1000]] = torch.rand(1000, generator=g, device=dev) * 0.004
+    st[0, pos[1000:4000]] = 0.005
+    cases.append(("day row 2^21, 3000 tied scores cut at M", dict(
+        ops=(st,), mask=None, mode="scores", filt=None, max_results=2000,
+        tol=1.1, shape=(1, n_day), timed=True)))
+    for n in (5000, 40_000):
+        cases += k2_adversarial(g, n)
     # Every other static variant on small rows (R = 3, N = 5,000):
     # scores quantized to 1/64 so that ties are common.
     r, n = 3, 5000
@@ -611,21 +660,91 @@ def k2_cases():
     for m in (100, 2000, 100_000):
         cases.append((f"scores 4x2^19 M={m}", dict(
             ops=(big,), mask=None, mode="scores", filt=None,
-            max_results=m, tol=0.9, shape=(4, 1 << 19))))
+            max_results=m, tol=0.9, shape=(4, 1 << 19), timed=True)))
     return cases
 
 
+def k2_adversarial(g, n: int):
+    """K2 cases the selection must get right, at R = 3 rows of N = n
+    events (so at the form n takes): M = 1, a tie group across the M-th
+    place and M > N; row 0 holds -0.0 beside +0.0, row 1 no qualifying
+    event and row 2 exactly one; row_len < N with the smallest scores
+    past each row's length; NaN on one side of min2; the dot at K 20
+    (16-byte gathers) and K 7 (scalar gathers) over 30 docs x 20 words,
+    whose repeated pairs tie. Scores are quantized to 1/64."""
+    import torch
+    dev = "cuda"
+    r, tol = 3, 0.5
+
+    def grid64():
+        return torch.floor(torch.rand((r, n), generator=g, device=dev)
+                           * 64) / 64
+
+    s = grid64()
+    zero = torch.rand(n, generator=g, device=dev) < 0.03
+    half = torch.rand(n, generator=g, device=dev) < 0.5
+    s[0] = torch.where(zero & half, torch.full_like(s[0], -0.0),
+                       torch.where(zero, torch.zeros_like(s[0]), s[0]))
+    s[1] = 0.75 + s[1] * 0.25
+    s[2] = 0.875
+    s[2, n // 3] = 0.125
+    m_tie = int((s[0] < 0.25).sum()) + int((s[0] == 0.25).sum()) // 2
+    tag = f"adversarial N={n}"
+    out = [(f"{tag} scores M={m}", dict(
+        ops=(s,), mask=None, mode="scores", filt=None, max_results=m,
+        tol=tol, shape=(r, n))) for m in (1, m_tie, n + 100)]
+    lens = torch.tensor([n - n // 7, n // 2, n], dtype=torch.int32,
+                        device=dev)
+    past = torch.arange(n, device=dev)[None, :] >= lens[:, None]
+    out.append((f"{tag} scores row_len<N", dict(
+        ops=(torch.where(past, torch.full_like(s, -1.0), s),), mask=None,
+        mode="scores", filt=None, row_len=lens, max_results=m_tie, tol=tol,
+        shape=(r, n))))
+    sa, sb = grid64(), grid64()
+    sa[:, ::7] = float("nan")
+    sb[:, 3::11] = float("nan")
+    out.append((f"{tag} min2 NaN one side", dict(
+        ops=(sa, sb), mask=None, mode="min2", filt=None, max_results=m_tie,
+        tol=tol, shape=(r, n))))
+    d = torch.randint(0, 30, (r, n), generator=g, device=dev,
+                      dtype=torch.int32)
+    w = torch.randint(0, 20, (r, n), generator=g, device=dev,
+                      dtype=torch.int32)
+    mask = (~past).float()
+    mask[1] = 0.0
+    for k in (20, 7):
+        theta = dirichlet_rows(g, 30, k, 0.5)
+        phi = dirichlet_rows(g, k, 20, 0.5).T.contiguous()
+        out.append((f"{tag} dot K={k} row_len<N", dict(
+            ops=(theta, phi, d, w), mask=mask, mode="dot", filt=None,
+            row_len=lens, max_results=min(n // 3, 2000), tol=0.1,
+            shape=(r, n))))
+    return out
+
+
 def k2_screened(kw):
-    """The screened dot-mode scores of an unfiltered K2 case: the
-    plain version's scores, +inf where the mask or tol rejects."""
+    """The screened scores of a K2 case before any filter: the plain
+    version's scores, +inf where the mask, the row length or tol
+    rejects (the input of the torch.topk yardstick)."""
     import torch
 
     from onix_torch.models.scoring import score_events_in_order
-    theta, phi, d, w = kw["ops"]
-    s = score_events_in_order(theta, phi, d, w, kw["slots"])
-    tol = torch.tensor(kw["tol"], dtype=torch.float32, device=s.device)
-    return torch.where((kw["mask"] > 0) & (s < tol), s,
-                       torch.full_like(s, float("inf")))
+    ops = kw["ops"]
+    if kw["mode"] == "dot":
+        s = score_events_in_order(*ops, kw.get("slots"))
+    elif kw["mode"] == "min2":
+        a, b = ops
+        s = torch.where(torch.isnan(a) | torch.isnan(b),
+                        torch.full_like(a, float("nan")), torch.minimum(a, b))
+    else:
+        s = ops[0]
+    ok = s < torch.tensor(kw["tol"], dtype=torch.float32, device=s.device)
+    if kw["mask"] is not None:
+        ok &= kw["mask"] > 0
+    if kw.get("row_len") is not None:
+        ok &= (torch.arange(s.shape[-1], device=s.device)[None, :]
+               < kw["row_len"][:, None])
+    return torch.where(ok, s, torch.full_like(s, float("inf")))
 
 
 def _k2_args(kw):
@@ -639,10 +758,14 @@ def _k2_args(kw):
 
 
 def phase_k2_kernel(card: str) -> dict:
-    """K2 against its plain version on the card at every static variant
-    and at the serving path's shapes: scores, indices, order and the
-    optional score stream must agree exactly. Times the bank wave and
-    the day row."""
+    """K2 against its plain version on the card at every static variant,
+    the serving path's shapes and the cases the selection must get
+    right, at both forms: scores, indices, order and the optional score
+    stream must agree exactly. Prints each case's form; times the timed
+    cases: device launches a call (profiler), the call (CUDA events),
+    the kernels alone (profiler), the bound, the plain version and the
+    torch.topk yardstick. The harness wave must be one launch of the
+    row form, the day row the long-row form."""
     import torch
 
     from onix_torch.models import fused_serve as fs
@@ -664,8 +787,13 @@ def phase_k2_kernel(card: str) -> dict:
             raise AssertionError(f"K2 {label}: winners differ from the "
                                  f"plain version at {bad} slots")
         n_win = int((got.indices >= 0).sum())
-        if not label.startswith(("bank wave", "day row", "scores 4x")):
-            say(card, f"K2 {label}: equal to plain ({n_win} winners)")
+        r, n = kw["shape"]
+        m = kw["max_results"]
+        k = kw["ops"][0].shape[-1] if kw["mode"] == "dot" else 0
+        form = fs.kernel_form(r, n, m, k)
+        if not kw.get("timed"):
+            say(card, f"K2 {label}: {form} form, equal to plain ({n_win} "
+                      "winners)")
             continue
 
         def kern():
@@ -674,29 +802,38 @@ def phase_k2_kernel(card: str) -> dict:
         def plain():
             return fs.fused_call_plain(*args, **opts)
         ms, plain_ms = event_ms(kern), event_ms(plain)
-        parts = profiled_ms(kern)
+        parts, n_ops = profiled(kern)
         n_real = int((kw["mask"] > 0).sum()) if kw["mask"] is not None \
-            else kw["shape"][0] * kw["shape"][1]
+            else r * n
         bound_ms, bound_by, nbytes, ops = k2_bound(kw, n_real)
-        say(card, f"K2 {label}: equal to plain ({n_win} winners); "
-                  f"kernel {ms:.5f} ms (profiler, kernels only: "
-                  f"{sum(parts.values()):.5f} ms), plain {plain_ms:.5f} ms "
-                  f"(CUDA events, median of 30); bound {bound_ms:.5f} ms "
-                  f"by {bound_by} ({nbytes} B, {ops} ops)")
-        say(card, f"K2 {label}: profiler: {_fmt(parts) or 'no device time'}")
-        if label in ("bank wave 64x2048", "day row 2^21"):
-            # A yardstick for the selection half alone, not a library
-            # time for K2 (no PyTorch call scores, filters and
-            # selects): torch.topk over the same screened scores.
+        # A yardstick for the selection half alone, not a library time
+        # for K2 (no PyTorch call scores, filters and selects):
+        # torch.topk over the same screened scores, before any filter.
+        topk = "n/a (M > N)"
+        if m <= n:
             screened = k2_screened(kw)
-            m = kw["max_results"]
             topk_ms = event_ms(lambda: torch.topk(
                 screened, m, dim=-1, largest=False, sorted=True))
-            say(card, f"K2 {label}: selection-half yardstick, torch.topk "
-                      f"of the {kw['shape']} screened scores, M={m}: "
-                      f"{topk_ms:.5f} ms (CUDA events, median of 30)")
+            topk = f"{topk_ms:.5f} ms"
+        say(card, f"K2 {label}: {form} form, equal to plain ({n_win} "
+                  f"winners); {n_ops:g} device op(s) a call; call "
+                  f"{ms:.5f} ms (CUDA events, median of 30); kernels alone "
+                  f"{sum(parts.values()):.5f} ms (profiler); bound "
+                  f"{bound_ms:.5f} ms by {bound_by} ({nbytes} B, {ops} ops);"
+                  f" plain {plain_ms:.5f} ms; torch.topk of the screened "
+                  f"scores, M={m}: {topk}")
+        say(card, f"K2 {label}: profiler: {_fmt(parts) or 'no device time'}")
+        if label == "bank wave 64x2048" and not (form == "row"
+                                                 and n_ops == 1):
+            raise AssertionError(f"K2 at the harness wave ran the {form} "
+                                 f"form, {n_ops:g} device ops a call, not "
+                                 "one launch of the row form")
+        if label.startswith("day row") and form != "long":
+            raise AssertionError(f"K2 {label} ran the {form} form")
         if label == "bank wave 64x2048":
-            fin = torch.isfinite(want.scores)
+            fin = torch.isfinite(plain().scores)
+            got = kern()
+            want = plain()
             err = float(torch.where(fin, (got.scores - want.scores).abs(),
                                     torch.zeros_like(got.scores)).max())
             row = {"name": "fused_serve", "route": "cuda",

@@ -22,7 +22,10 @@ entry points that end in it. Pieces:
   θ and φ rows from the bank itself, at slot·D_pad + d, so the two
   forms are the same call).
 - `launches`, the count of kernel launches (a plain integer). Only the
-  wrapper's kernel branch adds to it.
+  wrapper's kernel branch adds to it: one a call, whatever form the
+  kernel runs.
+- `kernel_form`, which of the kernel's two forms a call of given sizes
+  runs (the kernel picks it by shape alone).
 
 Differences from the reference's `_fused_call`: a leading request-row
 axis (1-d inputs are one row); the "dot" mode takes the tables and the
@@ -403,11 +406,30 @@ def _library():
         lib.onix_fused_serve.restype = ctypes.c_int
         lib.onix_fused_serve_work_bytes.argtypes = [ctypes.c_int] * 3
         lib.onix_fused_serve_work_bytes.restype = ctypes.c_longlong
+        lib.onix_fused_serve_form.argtypes = [ctypes.c_int] * 4
+        lib.onix_fused_serve_form.restype = ctypes.c_int
         lib.onix_fused_serve_params_bytes.restype = ctypes.c_int
         if lib.onix_fused_serve_params_bytes() != ctypes.sizeof(_Params):
             raise RuntimeError("fused_serve's Params layout differs from "
                                "its ctypes mirror")
     return lib
+
+
+#: The kernel's forms, by the number `onix_fused_serve_form` returns.
+FORMS = ("row", "long")
+
+
+def kernel_form(rows: int, n: int, max_results: int, k: int = 0) -> str:
+    """The form the kernel runs for a call of R = `rows` rows of `n`
+    events, M = `max_results` and K = `k` topics (chosen by these sizes
+    alone, in the kernel's library): "row", one launch with a row's
+    keys on chip, or "long", a memset and three kernels over device
+    scratch. Needs the kernel's build (a CUDA toolkit)."""
+    f = _library().onix_fused_serve_form(rows, n, max_results, k)
+    if f < 0:
+        raise ValueError(f"K2 takes no call of [{rows}, {n}] rows with "
+                         f"M = {max_results}, K = {k}")
+    return FORMS[f]
 
 
 # ---------------------------------------------------------------------------

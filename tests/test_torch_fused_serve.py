@@ -424,3 +424,134 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
                       row_len=torch.tensor([64], dtype=torch.int32))
     with pytest.raises(ValueError, match="cuda or cpu"):
         fs.fused_call((s.to("meta"),), None, None, None, None, 0.5, **kw)
+
+
+# -- the cases the kernel's selection must get right --------------------------
+#
+# Each is held to the XLA arm with fused_call_plain, which the kernel
+# equals bit for bit on the card (chip_smoke.py, both of its forms).
+
+def _grid64(rng, n):
+    """Scores on a 1/64 grid: every value repeats, so ties are common."""
+    return (np.floor(rng.random(n) * 64) / 64).astype(np.float32)
+
+
+def _plain_scores(s, tol, m, **kw):
+    return fs.fused_call_plain((t(s),), None, None, None, None, tol,
+                               mode="scores", max_results=m, **kw)
+
+
+SCORE_EDGES = ["tie group across the M-th place", "M = 1", "M > N",
+               "-0.0 before +0.0 by index"]
+
+
+@pytest.mark.parametrize("case", SCORE_EDGES)
+def test_selection_edges_match_xla_bottom_k(case):
+    rng = np.random.default_rng(SCORE_EDGES.index(case) + 40)
+    n, tol = 3000, 0.5
+    s = _grid64(rng, n)
+    if case == SCORE_EDGES[0]:
+        # M falls inside the 0.25 group: ties broken by the lower index.
+        m = int((s < 0.25).sum()) + int((s == 0.25).sum()) // 2
+        assert (s[np.argsort(s, kind="stable")][m - 1:m + 1] == 0.25).all()
+    elif case == SCORE_EDGES[1]:
+        m = 1
+    elif case == SCORE_EDGES[2]:
+        m = n + 57
+    else:
+        # Every -0.0 has a lower index than every +0.0: here the XLA
+        # arm's order (-0.0 first) and the index order agree.
+        s[:40] = -0.0
+        s[40:90] = 0.0
+        m = 120
+    ref = js.bottom_k(jnp.asarray(s), tol=tol, max_results=m)
+    assert_exact(_plain_scores(s, tol, m), ref)
+
+
+def test_signed_zeros_follow_the_tpu_kernel_not_xla_order():
+    """-0.0 beside +0.0, a -0.0 after a +0.0 by index. The TPU kernel
+    (pallas_serve `_lt`, a float compare) holds them equal and orders
+    them by index, reporting +0.0; so does the port. The XLA arm's
+    top_k puts every -0.0 first (ROADMAP queue 3, F6). Same events and
+    the same values either way."""
+    from onix.models import pallas_serve as ps
+    s = np.array([0.0, -0.0, 0.5, -0.0, 0.0, -1.0, np.inf, 0.25],
+                 np.float32)
+    port = _plain_scores(s, 1.0, 8)
+    assert port.indices.tolist() == [5, 0, 1, 3, 4, 7, 2, -1]
+    assert not torch.signbit(port.scores[1:5]).any()
+    tpu = ps.fused_bottom_k_scores(jnp.asarray(s), tol=1.0, max_results=8,
+                                   interpret=True)
+    assert_exact(port, tpu)
+    xla = js.bottom_k(jnp.asarray(s), tol=1.0, max_results=8)
+    assert np.asarray(xla.indices).tolist() == [5, 1, 3, 0, 4, 7, 2, -1]
+    np.testing.assert_array_equal(port.scores.numpy(),
+                                  np.asarray(xla.scores))
+
+
+def test_rows_with_no_and_with_one_qualifying_event():
+    """One call over three rows: an ordinary row, a row where nothing
+    is under tol, a row where exactly one event is; each row equals the
+    XLA arm on that row alone."""
+    rng = np.random.default_rng(44)
+    n, tol, m = 2000, 0.5, 300
+    s = np.stack([_grid64(rng, n),
+                  (0.75 + 0.25 * rng.random(n)).astype(np.float32),
+                  np.full(n, 0.875, np.float32)])
+    s[2, 1234] = 0.125
+    port = _plain_scores(s, tol, m)
+    for r in range(3):
+        ref = js.bottom_k(jnp.asarray(s[r]), tol=tol, max_results=m)
+        assert_exact(fs.TopK(port.scores[r], port.indices[r]), ref)
+    assert (port.indices[1] == -1).all()
+    assert port.indices[2].tolist()[:2] == [1234, -1]
+
+
+def test_row_len_skips_the_events_past_it():
+    """row_len < N, the lowest scores of each row past its length: the
+    row equals the XLA arm on its first row_len events, in scores and
+    in dot mode."""
+    rng = np.random.default_rng(45)
+    n, tol, m = 2500, 0.5, 400
+    lens = np.array([n - 321, 17, n], np.int32)
+    s = np.stack([_grid64(rng, n) for _ in range(3)])
+    past = np.arange(n)[None, :] >= lens[:, None]
+    s[past] = -1.0
+    port = _plain_scores(s, tol, m, row_len=t(lens))
+    for r in range(3):
+        ref = js.bottom_k(jnp.asarray(s[r, :lens[r]]), tol=tol,
+                          max_results=m)
+        assert_exact(fs.TopK(port.scores[r], port.indices[r]), ref)
+    theta, phi = tables(rng, 30, 20, 8)
+    d = rng.integers(0, 30, (3, n)).astype(np.int32)
+    w = rng.integers(0, 20, (3, n)).astype(np.int32)
+    mask = np.ones((3, n), np.float32)      # row_len alone screens
+    port = fs.fused_call_plain((t(theta), t(phi), t(d), t(w)), t(mask),
+                               None, None, None, 0.05, mode="dot",
+                               max_results=m, row_len=t(lens))
+    for r in range(3):
+        k = lens[r]
+        args = [jnp.asarray(a) for a in (theta, phi, d[r, :k], w[r, :k])]
+        ref = js.top_suspicious(*args, jnp.ones(k, jnp.float32), tol=0.05,
+                                max_results=m)
+        ref_scores = np.asarray(js.score_events(*args))
+        assert_dot_close(fs.TopK(port.scores[r], port.indices[r]), ref,
+                         ref_scores)
+
+
+@pytest.mark.parametrize("m", [1, 150, 5000])
+def test_min2_with_nan_on_one_side_matches_xla(m):
+    """A NaN on either side of the src/dst min takes the event out (NaN
+    is not < tol), as in the XLA arm's pair min."""
+    rng = np.random.default_rng(46 + m)
+    table = _grid64(rng, 600)
+    table[::7] = np.nan
+    n = 4000
+    isrc = rng.integers(0, 600, n).astype(np.int32)
+    idst = rng.integers(0, 600, n).astype(np.int32)
+    assert np.isnan(table[isrc]).any() and np.isnan(table[idst]).any()
+    ref = js.table_pair_bottom_k(jnp.asarray(table), jnp.asarray(isrc),
+                                 jnp.asarray(idst), tol=0.5, max_results=m)
+    port = fs.fused_call_plain((t(table[isrc]), t(table[idst])), None, None,
+                               None, None, 0.5, mode="min2", max_results=m)
+    assert_exact(port, ref)

@@ -10,6 +10,7 @@ events in the same order except at a named near-tie.
 
 import http.client
 import json
+import time
 
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ from onix_torch import cli  # noqa: E402
 from onix_torch.checkpoint import save_model  # noqa: E402
 from onix_torch.config import OnixConfig  # noqa: E402
 from onix_torch.oa import serve  # noqa: E402
+from onix_torch.utils import telemetry as ttelemetry  # noqa: E402
 from onix_torch.utils.obs import counters  # noqa: E402
 
 TOL, M = 1.0, 16
@@ -194,6 +196,22 @@ def test_feedback_installs_the_filter_live(server):
     assert out3["results"][0]["cached"] is True
 
 
+def _await_request_span(trace_id: str, n_before: int,
+                        timeout_s: float = 5.0) -> None:
+    """Wait until the `serve.request` span of `trace_id` has closed and
+    reached its histogram. The handler sends its answer inside the span
+    (as the reference's does), so a client can read the answer a moment
+    before the span closes (ROADMAP queue 3, F5)."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        hist = ttelemetry.histograms.get("span.serve.request")
+        if (any(sp.name == "serve.request"
+                for sp in ttelemetry.TRACER.spans(trace_id))
+                and hist is not None and hist.n > n_before):
+            return
+        time.sleep(0.01)
+
+
 def test_metrics_parse_strictly(server):
     cfg, _, srv, port = server
     status, raw = _get(port, "/metrics")
@@ -201,7 +219,10 @@ def test_metrics_parse_strictly(server):
     jtelemetry.parse_prometheus_text(raw.decode())       # no bank yet
     rng = np.random.default_rng(12)
     d = rng.integers(0, 120, 50).astype(np.int32)
-    _post_json(port, "/score", _body(d, d % 90))
+    hist = ttelemetry.histograms.get("span.serve.request")
+    n_before = 0 if hist is None else hist.n
+    _, headers, _ = _post_json(port, "/score", _body(d, d % 90))
+    _await_request_span(headers["X-Request-Id"], n_before)
     status, raw = _get(port, "/metrics")
     text = raw.decode()
     parsed = jtelemetry.parse_prometheus_text(text)
