@@ -20,16 +20,21 @@ non-zero and prints no result line):
              repeats):
              z, n_dk, n_wk and n_k exactly equal, every repeat
              identical; the call's time, each kernel's device time, the
-             bound and the plain version's time.
+             bound and the plain version's time. Then the step with a
+             chain axis, one call for all chains (C 8 at the main path,
+             C 3 at a ragged block of odd K): equal to its plain version
+             and to one-chain calls chain by chain; times at C 8 and
+             C 1, and the bound for C chains.
 3. K2      — kernel K2 (fused serving) against its plain version at
              every static variant, at the harness bank wave and the
              2^21-event day row, with 64- and 4,096-entry filters and
              M up to 100,000: scores, indices and order equal exactly;
              times, bound, and torch.topk as a selection-half yardstick.
 4. fit     — a small fit on the card and on the CPU from one noise
-             stream: the chains must agree; then two sweeps at the
-             main-path shape, timed and profiled by kernel, with the
-             device launches per block step.
+             stream, at one chain and at four: the fits must agree;
+             then two sweeps at the main-path shape at one chain and at
+             eight, timed and profiled by kernel, with the device
+             launches per block step (the same at both).
 5. slice   — write a synthetic flow day of 10^6 events into a temporary
              store, run `onix_torch.cli score 2016-07-08 flow -s
              serving.save_fitted=true` at the default config on the
@@ -42,6 +47,15 @@ non-zero and prints no result line):
              /feedback (3 benign, 1 threat) and /score again. Every
              answer equals the plain single-tenant path bit for bit;
              K2's launches equal the bank's dispatches; no fallback.
+             Then the day again with `-s lda.n_chains=8`: K1's launches
+             those of one chain, the saved theta [8, D, K], the recall.
+7. overlap — the port's judged rehearsal on the card for flow, dns and
+             proxy at the reference's recipe (100,000 events; 8 chains
+             against 16 oracle restarts at 300 sweeps for flow, 16
+             against 32 at 400 for dns and proxy; seed 5): top-1k
+             overlap against the C++ oracle >= 0.95 and >= the
+             oracle's own ceiling less 0.02. The oracle is built with
+             make from native/lda_ref and runs on the host's cores.
 
 The last lines of standard output are the card's name and power limit,
 a `{"kernels": [...]}` line, and `{"ok": true, "device": {...}}`.
@@ -129,26 +143,43 @@ def event_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def profiled(fn, reps: int = 30) -> tuple[dict, float]:
-    """({device op: ms per call}, device ops per call) of `fn()` from
-    torch.profiler (CUPTI): the device time of each kernel and memset
-    `fn` launches, and how many it launches a call. Empty and 0 when
-    the profiler records no device time."""
+def device_events(fn, reps: int = 1, attempts: int = 3) -> list:
+    """[(name, count, device ms)] of every device op that `reps` calls
+    of `fn()` launch, from torch.profiler (CUPTI), summed over the
+    calls. CUPTI now and then delivers no device record for a window
+    whose kernels ran; such an empty window is profiled again, up to
+    `attempts` windows, and the last one is returned (empty when every
+    window was)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    ops = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ops = [(e.key, e.count, e.self_device_time_total / 1e3)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+        if ops:
+            break
+    return ops
+
+
+def profiled(fn, reps: int = 30) -> tuple[dict, float]:
+    """({device op: ms per call}, device ops per call) of `fn()` from
+    `device_events`: the device time of each kernel and memset `fn`
+    launches, and how many it launches a call. Empty and 0 when the
+    profiler records no device time."""
+    import torch
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ops = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA
-           and e.self_device_time_total > 0]
-    return ({e.key: e.self_device_time_total / reps / 1e3 for e in ops},
-            sum(e.count for e in ops) / reps)
+    ops = device_events(fn, reps)
+    return ({k: ms / reps for k, _, ms in ops},
+            sum(c for _, c, _ in ops) / reps)
 
 
 def profiled_ms(fn, reps: int = 30) -> dict:
@@ -312,24 +343,30 @@ def phase_kernels(card: str) -> None:
 def step_bound(d, w, z_old, z_new, mask, k, use_gumbel):
     """(bound_ms, bound_by, bytes, ops) for one in-place block step on
     this data: what the function must move, not what this design
-    moves. Bytes: the mask of every token, the real tokens' noise rows,
-    ids and z_old, z written for the tokens whose topic changed, the
-    n_dk and n_wk rows the real tokens touch read once, the rows of the
-    tokens whose topic changed written once, n_k read and written. The
-    sample kernel's z_new scratch is this design's choice and is not
-    counted. Operations as `k1_bound`."""
+    moves. Bytes: the mask of every token and the real tokens' ids,
+    once; for each chain (z_old and z_new [B], or [C, B] for C chains)
+    the real tokens' noise rows and z_old, z written for the tokens
+    whose topic changed, the n_dk and n_wk rows the real tokens touch
+    read once, the rows of the tokens whose topic changed written once,
+    n_k read and written. The sample kernel's z_new scratch is this
+    design's choice and is not counted. Operations as `k1_bound`, for
+    every chain."""
     import torch
     real = mask > 0
-    moved = real & (z_new != z_old)
-    n_real, n_moved = int(real.sum()), int(moved.sum())
+    n_real = int(real.sum())
     b = int(mask.shape[0])
 
     def rows(sel):
         return (int(torch.unique(d[sel]).numel())
                 + int(torch.unique(w[sel]).numel()))
-    nbytes = (b * 4 + n_real * (k * 4 + 12) + n_moved * 4
-              + (rows(real) + rows(moved)) * k * 4 + 2 * k * 4)
-    ops = n_real * k * (12 if use_gumbel else 10)
+    zo = z_old.reshape(-1, b)
+    zn = z_new.reshape(-1, b)
+    nbytes = b * 4 + n_real * 8
+    for c in range(zo.shape[0]):
+        moved = real & (zn[c] != zo[c])
+        nbytes += (n_real * (k * 4 + 4) + int(moved.sum()) * 4
+                   + (rows(real) + rows(moved)) * k * 4 + 2 * k * 4)
+    ops = zo.shape[0] * n_real * k * (12 if use_gumbel else 10)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
@@ -434,6 +471,177 @@ def phase_step(card: str) -> dict:
                        "bound_ms": bound_ms, "bound_by": bound_by,
                        "library_ms": None}
     return {"sample_count": row}
+
+
+def k1_chain_inputs(c: int, b: int, k: int, v: int, d: int, pad: int,
+                    use_gumbel: bool, seed: int):
+    """K1 inputs for `c` chains on the card: shared ids and mask; per
+    chain, background counts plus the chain's own assignments of the
+    block, noise [c, b, k], and the block's topics as row 1 of a
+    [c, 3, b] z (the kernel takes the strided view z[:, 1], as the fit
+    does)."""
+    import torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    dev = "cuda"
+
+    def ints(hi, shape):
+        return torch.randint(0, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    docs, words = ints(d, (b,)), ints(v, (b,))
+    z_all = ints(k, (c, 3, b))
+    mask = torch.ones(b, device=dev)
+    if pad:
+        mask[b - pad:] = 0.0
+        z_all[:, :, b - pad:] = k
+    real = mask > 0
+    n_dk = ints(40, (c, d, k))
+    n_wk = ints(3000, (c, v, k))
+    for i in range(c):
+        zr = z_all[i, 1][real].long()
+        one = torch.ones_like(zr, dtype=torch.int32)
+        n_dk[i].view(-1).index_add_(0, docs[real].long() * k + zr, one)
+        n_wk[i].view(-1).index_add_(0, words[real].long() * k + zr, one)
+    n_k = n_wk.sum(dim=1, dtype=torch.int32)
+    noise = torch.stack([k1_noise(g, b, k, use_gumbel) for _ in range(c)])
+    return n_dk, n_wk, n_k, z_all, noise, docs, words, mask
+
+
+# The chain-batched step: (label, C, B, K, V, D, padding tokens). The
+# main path at the rehearsal's and the day's C = 8; a ragged block at
+# C = 3 with an odd K, the sample kernel's scalar form.
+K1_CHAIN_SHAPES = [
+    ("main path", 8, MAIN_B, MAIN_K, MAIN_V, MAIN_D, MAIN_B // 10),
+    ("ragged odd topics", 3, 1000, 7, 300, 500, 137),
+]
+
+
+def phase_chain_step(card: str) -> dict:
+    """K1's in-place block step with a chain axis: one call for every
+    chain, z the strided view z[:, 1] of a [C, 3, B] state. From one
+    snapshot, the call must equal its plain version (chain by chain)
+    exactly in z, n_dk, n_wk and n_k, leave the other rows of z alone,
+    and give each chain what a one-chain call on that chain's slices
+    gives. Times the C-chain call and, at the main path, a one-chain
+    call of the same shape (CUDA events; sample and apply kernels by
+    the profiler), with the bound for C chains. Returns the main path's
+    Gumbel figures for K1's row."""
+    import itertools
+
+    import torch
+
+    from onix_torch.models import sample_count as sc
+    out = {}
+    for si, (label, c, b, k, v, d, pad) in enumerate(K1_CHAIN_SHAPES):
+        for use_gumbel in (True, False):
+            sampler = "gumbel" if use_gumbel else "race"
+            n_dk, n_wk, n_k, z_all, noise, docs, words, mask = \
+                k1_chain_inputs(c, b, k, v, d, pad, use_gumbel,
+                                seed=61 + si)
+            kw = dict(alpha=ALPHA, eta=ETA, v_eta=v * ETA,
+                      use_gumbel=use_gumbel)
+            snap = (n_dk, n_wk, n_k, z_all)
+
+            def fresh():
+                return [t.clone() for t in snap]
+
+            def step(st, fn=sc.gibbs_block_step_, g=noise):
+                fn(st[0], st[1], st[2], st[3][:, 1], g, docs, words, mask,
+                   **kw)
+            want = fresh()
+            step(want, sc.gibbs_block_step_plain)
+            got = fresh()
+            before = sc.launches
+            step(got)
+            torch.cuda.synchronize()
+            if sc.launches - before != 1:
+                raise AssertionError(f"K1 chains {label}/{sampler}: "
+                                     f"{sc.launches - before} calls, not 1")
+            for name, a, e in zip(("n_dk", "n_wk", "n_k", "z"), got, want):
+                for ci in range(c):
+                    if not torch.equal(a[ci], e[ci]):
+                        bad = int((a[ci] != e[ci]).sum())
+                        raise AssertionError(
+                            f"K1 chains {label}/{sampler}: chain {ci} "
+                            f"{name} differs from the plain step at {bad} "
+                            "places")
+            if not torch.equal(got[3][:, [0, 2]], z_all[:, [0, 2]]):
+                raise AssertionError(f"K1 chains {label}/{sampler}: the "
+                                     "call wrote outside z[:, 1]")
+            for ci in range(c):
+                one = [snap[0][ci].clone(), snap[1][ci].clone(),
+                       snap[2][ci].clone(), snap[3][ci, 1].clone()]
+                sc.gibbs_block_step_(one[0], one[1], one[2], one[3],
+                                     noise[ci].contiguous(), docs, words,
+                                     mask, **kw)
+                torch.cuda.synchronize()
+                for name, a, e in zip(("n_dk", "n_wk", "n_k", "z"), one,
+                                      (got[0][ci], got[1][ci], got[2][ci],
+                                       got[3][ci, 1])):
+                    if not torch.equal(a, e):
+                        raise AssertionError(
+                            f"K1 chains {label}/{sampler}: chain {ci} "
+                            f"{name} differs from a one-chain call")
+            n_moved = int(((want[3][:, 1] != z_all[:, 1])
+                           & (mask > 0)).sum())
+            err = max(float((a.double() - e.double()).abs().max())
+                      for a, e in zip(got, want))
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(71 + si)
+            draws = itertools.cycle([
+                torch.stack([k1_noise(gen, b, k, use_gumbel)
+                             for _ in range(c)]) for _ in range(4)])
+            work, plain_work = fresh(), fresh()
+            ms = event_ms(lambda: step(work, g=next(draws)))
+            plain_ms = event_ms(lambda: step(
+                plain_work, sc.gibbs_block_step_plain, next(draws)),
+                reps=10)
+            parts = profiled_ms(lambda: step(work, g=next(draws)))
+            sample_ms = sum(t for n, t in parts.items() if "sample_" in n)
+            apply_ms = sum(t for n, t in parts.items()
+                           if "apply_kernel" in n)
+            bound_ms, bound_by, nbytes, ops = step_bound(
+                docs, words, z_all[:, 1], want[3][:, 1], mask, k,
+                use_gumbel)
+            say(card, f"K1 chains {label} C={c} B={b} K={k} V={v} D={d} "
+                      f"pad={pad} {sampler}: one call, z, n_dk, n_wk, n_k "
+                      f"equal to plain and to {c} one-chain calls "
+                      f"({n_moved} tokens moved); call {ms:.5f} ms, plain "
+                      f"{plain_ms:.5f} ms (CUDA events, median); kernels "
+                      f"(profiler): sample {sample_ms:.5f} ms, apply "
+                      f"{apply_ms:.5f} ms, {len(parts)} device op(s) a "
+                      f"call; bound {bound_ms:.5f} ms by {bound_by} "
+                      f"({nbytes} B, {ops} ops)")
+            if not (sample_ms > 0 and apply_ms > 0 and len(parts) == 2):
+                raise AssertionError(f"K1 chains {label}/{sampler}: the "
+                                     f"call ran {sorted(parts)}, not the "
+                                     "sample and apply kernels alone")
+            if si == 0 and use_gumbel:
+                st1 = [snap[0][0].clone(), snap[1][0].clone(),
+                       snap[2][0].clone(), snap[3][0].clone()]
+                draws1 = itertools.cycle([k1_noise(gen, b, k, True)
+                                          for _ in range(8)])
+
+                def step1():
+                    sc.gibbs_block_step_(st1[0], st1[1], st1[2], st1[3][1],
+                                         next(draws1), docs, words, mask,
+                                         **kw)
+                ms1 = event_ms(step1)
+                parts1 = profiled_ms(step1)
+                sample1 = sum(t for n, t in parts1.items()
+                              if "sample_" in n)
+                apply1 = sum(t for n, t in parts1.items()
+                             if "apply_kernel" in n)
+                say(card, f"K1 chains {label}: the same step at C=1 "
+                          f"{ms1:.5f} ms a call, sample {sample1:.5f} ms, "
+                          f"apply {apply1:.5f} ms; C={c} costs "
+                          f"{ms / ms1:.2f}x one chain")
+                out = {"chains": c, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "sample_ms": sample_ms, "apply_ms": apply_ms,
+                       "max_abs_err": err, "ms_one_chain": ms1}
+    return out
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -849,11 +1057,12 @@ def phase_k2_kernel(card: str) -> dict:
 
 class CarriedNoise:
     """One noise stream drawn on the CPU and carried to `device`, so a
-    fit on the card and a fit on the CPU sample from the same numbers."""
+    fit on the card and a fit on the CPU sample from the same numbers
+    (for `n_chains` chains, the [C, ...] draws of `TorchNoise`)."""
 
-    def __init__(self, seed: int, device):
+    def __init__(self, seed: int, device, n_chains: int = 1):
         from onix_torch.models.lda_gibbs import TorchNoise
-        self.src = TorchNoise(seed, "cpu")
+        self.src = TorchNoise(seed, "cpu", n_chains=n_chains)
         self.device = device
 
     def init_topics(self, shape, n_topics):
@@ -864,6 +1073,10 @@ class CarriedNoise:
 
 
 def phase_fit(card: str) -> None:
+    """A small fit on the card and on the CPU from one carried noise
+    stream, at one chain and at four: z must agree on >= 0.999 of the
+    tokens and every ll point to 1e-4 relative, and the card's counts
+    keep their invariants chain by chain."""
     import numpy as np
     import torch
 
@@ -872,118 +1085,128 @@ def phase_fit(card: str) -> None:
     from onix_torch.models.lda_gibbs import GibbsLDA
     corpus, _, _ = synthetic_lda_corpus(300, 200, 8, mean_doc_len=60,
                                         seed=4)
-    cfg = LDAConfig(n_topics=8, n_sweeps=3, burn_in=1, block_size=4096,
-                    seed=2)
-    out = {}
-    for dev in ("cuda", "cpu"):
-        model = GibbsLDA(cfg, corpus.n_docs, corpus.n_vocab, device=dev,
-                         sampler="gumbel")
-        out[dev] = model.fit(corpus, noise=CarriedNoise(cfg.seed, dev))
-    z_gpu = out["cuda"]["state"].z.cpu().numpy()
-    z_cpu = out["cpu"]["state"].z.numpy()
-    agree = float((z_gpu == z_cpu).mean())
-    ll_gpu = np.array([ll for _, ll in out["cuda"]["ll_history"]])
-    ll_cpu = np.array([ll for _, ll in out["cpu"]["ll_history"]])
-    rel = float(np.max(np.abs(ll_gpu - ll_cpu) / np.abs(ll_cpu)))
-    say(card, f"fit: {corpus.n_tokens} tokens, 3 sweeps on card and CPU "
-              f"from one noise stream: z agreement {agree:.6f}, ll max "
-              f"rel diff {rel:.3e}")
-    if agree < 0.999 or rel > 1e-4:
-        raise AssertionError("fit on the card disagrees with the CPU fit")
-    st = out["cuda"]["state"]
-    if not (np.isfinite(ll_gpu).all()
-            and int(st.n_k.sum()) == int(st.n_dk.sum()) == corpus.n_tokens
-            and torch.equal(st.n_k, st.n_wk.sum(dim=0, dtype=torch.int32))):
-        raise AssertionError("fit on the card broke a count invariant")
+    for chains in (1, 4):
+        cfg = LDAConfig(n_topics=8, n_sweeps=3, burn_in=1, block_size=4096,
+                        seed=2, n_chains=chains)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            model = GibbsLDA(cfg, corpus.n_docs, corpus.n_vocab, device=dev,
+                             sampler="gumbel")
+            out[dev] = model.fit(corpus, noise=CarriedNoise(cfg.seed, dev,
+                                                            chains))
+        z_gpu = out["cuda"]["state"].z.cpu().numpy()
+        z_cpu = out["cpu"]["state"].z.numpy()
+        agree = float((z_gpu == z_cpu).mean())
+        ll_gpu = np.array([ll for _, ll in out["cuda"]["ll_history"]])
+        ll_cpu = np.array([ll for _, ll in out["cpu"]["ll_history"]])
+        rel = float(np.max(np.abs(ll_gpu - ll_cpu) / np.abs(ll_cpu)))
+        say(card, f"fit: {corpus.n_tokens} tokens, {chains} chain(s), 3 "
+                  f"sweeps on card and CPU from one noise stream: z "
+                  f"agreement {agree:.6f}, ll max rel diff {rel:.3e}, "
+                  f"theta {out['cuda']['theta'].shape}")
+        if agree < 0.999 or rel > 1e-4:
+            raise AssertionError(f"fit of {chains} chain(s) on the card "
+                                 "disagrees with the CPU fit")
+        st = out["cuda"]["state"]
+        n_k = st.n_k.reshape(chains, -1)
+        n_dk = st.n_dk.reshape(chains, corpus.n_docs, -1)
+        n_wk = st.n_wk.reshape(chains, corpus.n_vocab, -1)
+        if not (np.isfinite(ll_gpu).all()
+                and (n_k.sum(dim=1) == corpus.n_tokens).all()
+                and (n_dk.sum(dim=(1, 2)) == corpus.n_tokens).all()
+                and torch.equal(n_k, n_wk.sum(dim=1, dtype=torch.int32))):
+            raise AssertionError("fit on the card broke a count invariant")
 
 
 def phase_fit_profile(card: str) -> None:
     """Where a fit's time goes at the main-path shape: two sweeps of a
-    synthetic corpus of D x V = 20,575 x 504 and ~2e6 tokens, timed
-    plain and then under torch.profiler for device time by kernel."""
+    synthetic corpus of D x V = 20,575 x 504 and ~2e6 tokens, at one
+    chain and at eight, timed plain and then under torch.profiler for
+    device time by kernel. The device launches a block step (the noise
+    draw's and K1's) must not grow with the chains."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from onix_torch.config import LDAConfig
     from onix_torch.corpus import synthetic_lda_corpus
     from onix_torch.models.lda_gibbs import GibbsLDA, TorchNoise, block_step
     corpus, _, _ = synthetic_lda_corpus(MAIN_D, MAIN_V, MAIN_K,
                                         mean_doc_len=97, seed=5)
-    model = GibbsLDA(LDAConfig(n_sweeps=2, burn_in=0), corpus.n_docs,
-                     corpus.n_vocab, device="cuda")
-    model.fit(corpus, n_sweeps=1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model.fit(corpus)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        model.fit(corpus)
-        torch.cuda.synchronize()
-    dev = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                  for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total > 0), reverse=True)
-    busy = sum(ms for ms, _, _ in dev)
-    docs, words, mask = model.prepare(corpus)
-    n_steps = 2 * docs.shape[0]
-    say(card, f"fit profile: {corpus.n_tokens} tokens, 2 sweeps "
-              f"({n_steps} block steps), wall {wall * 1e3:.1f} ms "
-              f"unprofiled; device busy {busy:.1f} ms (profiled run); "
-              f"{sum(c for _, c, _ in dev) / n_steps:.2f} device ops a "
-              f"block step over the whole fit")
-    for ms, count, key in dev[:6]:
-        say(card, f"fit profile:   {ms:9.3f} ms  x{count:<6d} {key[:60]}")
-    # The block step alone, and the noise draw that feeds it.
-    cfg = model.config
-    st = model.fit(corpus, n_sweeps=1)["state"]
-    noise = TorchNoise(9, "cuda")
-    nb, b = docs.shape
-    blocks = [noise.block(b, MAIN_K, True) for _ in range(nb)]
-
-    def draws():
-        for _ in range(nb):
-            noise.block(b, MAIN_K, True)
-
-    def steps():
-        for i in range(nb):
-            block_step(st, i, docs[i], words[i], mask[i], blocks[i],
-                       alpha=cfg.alpha, eta=cfg.eta,
-                       v_eta=corpus.n_vocab * cfg.eta, use_gumbel=True)
-    for label, fn in (("noise draw", draws), ("block step", steps)):
+    per_step = {}
+    for chains in (1, 8):
+        tag = f"fit profile C={chains}"
+        model = GibbsLDA(LDAConfig(n_sweeps=2, burn_in=0, n_chains=chains),
+                         corpus.n_docs, corpus.n_vocab, device="cuda")
+        model.fit(corpus, n_sweeps=1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fn()
-        host = time.perf_counter() - t0
+        model.fit(corpus)
         torch.cuda.synchronize()
-        done = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
+        wall = time.perf_counter() - t0
+        dev = sorted(((ms, count, key) for key, count, ms
+                      in device_events(lambda: model.fit(corpus))),
+                     reverse=True)
+        busy = sum(ms for ms, _, _ in dev)
+        docs, words, mask = model.prepare(corpus)
+        n_steps = 2 * docs.shape[0]
+        say(card, f"{tag}: {corpus.n_tokens} tokens, 2 sweeps "
+                  f"({n_steps} block steps), wall {wall * 1e3:.1f} ms "
+                  f"unprofiled, {corpus.n_tokens * 2 * chains / wall:.4g} "
+                  f"chain-tokens/s; device busy {busy:.1f} ms (profiled "
+                  f"run); {sum(c for _, c, _ in dev) / n_steps:.2f} device "
+                  f"ops a block step over the whole fit")
+        for ms, count, key in dev[:6]:
+            say(card, f"{tag}:   {ms:9.3f} ms  x{count:<6d} {key[:60]}")
+        # The block step alone, and the noise draw that feeds it.
+        cfg = model.config
+        st = model.fit(corpus, n_sweeps=1)["state"]
+        noise = TorchNoise(9, "cuda", n_chains=chains)
+        nb, b = docs.shape
+        blocks = [noise.block(b, MAIN_K, True) for _ in range(nb)]
+
+        def draws():
+            for _ in range(nb):
+                noise.block(b, MAIN_K, True)
+
+        def steps():
+            for i in range(nb):
+                block_step(st, i, docs[i], words[i], mask[i], blocks[i],
+                           alpha=cfg.alpha, eta=cfg.eta,
+                           v_eta=corpus.n_vocab * cfg.eta, use_gumbel=True)
+        total = 0.0
+        for label, fn in (("noise draw", draws), ("block step", steps)):
             torch.cuda.synchronize()
-        ops = [(e.count, e.key) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
-        per = sum(c for c, _ in ops) / nb
-        say(card, f"fit profile: {label}: {per:.2f} device launches a "
-                  f"block step ({'; '.join(k[:40] for _, k in ops)}); "
-                  f"host enqueue {host / nb * 1e3:.4f} ms, to done "
-                  f"{done / nb * 1e3:.4f} ms a block step (unprofiled, "
-                  f"{nb} steps)")
-        if label == "block step" and per != 2:
-            raise AssertionError("the fit's block step is not the two K1 "
-                                 "kernels alone")
+            t0 = time.perf_counter()
+            fn()
+            host = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            done = time.perf_counter() - t0
+            ops = [(c, k, ms) for k, c, ms in device_events(fn)]
+            per = sum(c for c, _, _ in ops) / nb
+            total += per
+            say(card, f"{tag}: {label}: {per:.2f} device launches a "
+                      f"block step ({'; '.join(k[:40] for _, k, _ in ops)}"
+                      f"); device {sum(t for _, _, t in ops) / nb:.4f} ms, "
+                      f"host enqueue {host / nb * 1e3:.4f} ms, to done "
+                      f"{done / nb * 1e3:.4f} ms a block step "
+                      f"(unprofiled, {nb} steps)")
+            if label == "block step" and per != 2:
+                raise AssertionError("the fit's block step is not the two "
+                                     "K1 kernels alone")
+        per_step[chains] = total
+    if per_step[8] != per_step[1]:
+        raise AssertionError(f"device launches a block step grew with the "
+                             f"chains: {per_step}")
 
 
 # -- phase 5 ----------------------------------------------------------------
 
-def phase_slice(card: str, root: pathlib.Path):
+def phase_slice(card: str, root: pathlib.Path, chains: int = 1):
     """Write the day into a store under `root` and run `onix_torch
     score` on it with serving.save_fitted on, so the day's model lands
-    under <root>/models for the serving phase. Returns the K1 launch
-    count and the day's table."""
+    under <root>/models for the serving phase; with `chains` > 1 the
+    run adds `-s lda.n_chains=<chains>` and K1's launches must stay
+    those of one chain. Returns the K1 launch count, the day's table
+    and its planted-anomaly recall."""
     import numpy as np
     import pandas as pd
     import torch
@@ -997,13 +1220,15 @@ def phase_slice(card: str, root: pathlib.Path):
     table, planted = synth_flow_day(DAY_EVENTS, n_hosts=DAY_HOSTS,
                                     n_anomalies=DAY_ANOMALIES, seed=0)
     Store(root).write("flow", date, table)
-    say(card, f"slice: synthetic day of {len(table)} events written "
+    tag = "slice" if chains == 1 else f"slice C={chains}"
+    say(card, f"{tag}: synthetic day of {len(table)} events written "
               f"in {time.perf_counter() - t0:.2f} s")
     torch.cuda.synchronize()
     sample_count.launches = 0
     t0 = time.perf_counter()
     rc = cli.main(["score", date, "flow", "-s", f"store.root={root}",
-                   "-s", "serving.save_fitted=true"])
+                   "-s", "serving.save_fitted=true",
+                   "-s", f"lda.n_chains={chains}"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = sample_count.launches
@@ -1041,21 +1266,29 @@ def phase_slice(card: str, root: pathlib.Path):
     recall = len(set(res["event_idx"]) & set(planted.tolist())) / len(
         planted)
     fit_s = stages["lda_fit"]
-    say(card, f"slice: onix_torch score {date} flow: D={man['n_docs']} "
-              f"V={man['n_vocab']} N={n_tok}, device {man['device']}, "
-              f"K1 launches {launches}")
-    say(card, f"slice: wall {wall:.2f} s; stages {json.dumps(stages)}; "
-              f"fit {fit_s:.2f} s = {n_tok * 60 / fit_s:.4g} tokens/s "
-              f"(60 sweeps); scoring {man['scoring_seconds']} s "
+    saved = pathlib.Path(man.get("model_saved", ""))
+    if not saved.exists():
+        raise AssertionError("score did not save the fitted model")
+    with np.load(saved) as z:
+        theta_shape = tuple(z["theta"].shape)
+    lead = (chains,) if chains > 1 else ()
+    if theta_shape != (*lead, man["n_docs"], MAIN_K):
+        raise AssertionError(f"saved theta has shape {theta_shape}")
+    say(card, f"{tag}: onix_torch score {date} flow -s lda.n_chains="
+              f"{chains}: D={man['n_docs']} V={man['n_vocab']} N={n_tok}, "
+              f"device {man['device']}, K1 launches {launches}, saved "
+              f"theta {theta_shape}")
+    say(card, f"{tag}: wall {wall:.2f} s; stages {json.dumps(stages)}; "
+              f"fit {fit_s:.2f} s = {n_tok * 60 / fit_s:.4g} tokens/s, "
+              f"{n_tok * 60 * chains / fit_s:.4g} chain-tokens/s (60 "
+              f"sweeps); scoring {man['scoring_seconds']} s "
               f"({man['events_per_sec']} events/s)")
-    say(card, f"slice: planted-anomaly recall {recall:.4f} "
+    say(card, f"{tag}: planted-anomaly recall {recall:.4f} "
               f"({len(res)} results, bar {RECALL_BAR}); ll "
               f"{lls[0]:.5f} -> {lls[-1]:.5f}")
     if recall < RECALL_BAR:
         raise AssertionError(f"recall {recall} under {RECALL_BAR}")
-    if not pathlib.Path(man.get("model_saved", "")).exists():
-        raise AssertionError("score did not save the fitted model")
-    return {"sample_count": launches}, table
+    return {"sample_count": launches}, table, recall
 
 
 # -- phase 6 ----------------------------------------------------------------
@@ -1339,6 +1572,59 @@ def phase_serve(card: str, root: pathlib.Path, table) -> dict:
     return {"fused_serve": launches}
 
 
+# -- phase 7 ----------------------------------------------------------------
+
+# The reference's recipe for each datatype's judged cell
+# (docs/OVERLAP_r03.json, seed 5): (datatype, chains, oracle restarts,
+# sweeps, then the JAX engine's overlap vs the oracle and the oracle's
+# ceiling on the day today's generator makes, from
+# `python -m onix.pipelines.rehearsal` at the same recipe on a CPU host;
+# r03's figures came from an older day).
+OVERLAP_CELLS = [
+    ("flow", 8, 16, 300, 0.973, 0.972),
+    ("dns", 16, 32, 400, 0.964, 0.967),
+    ("proxy", 16, 32, 400, 0.967, 0.970),
+]
+OVERLAP_EVENTS, OVERLAP_SEED = 100_000, 5
+
+
+def phase_overlap(card: str) -> dict:
+    """The judged bar on the card: the port's `run_rehearsal` for each
+    datatype at the reference's recipe (100,000 events, K 20, alpha
+    0.5, eta 0.05, seed 5), the port's chains fitted on the card
+    against oracle restart ensembles run on the host's cores. Each cell
+    must reach top-1k overlap >= 0.95 and the oracle's own ceiling less
+    0.02, as tests/test_oracle.py holds the JAX engine. Returns the
+    cells' results by datatype."""
+    import os
+
+    from onix_torch.pipelines.rehearsal import JUDGED_BAR, run_rehearsal
+    workers = os.cpu_count() or 1
+    out = {}
+    for dt, chains, runs, sweeps, ref, ref_ceiling in OVERLAP_CELLS:
+        t0 = time.perf_counter()
+        r = run_rehearsal(n_events=OVERLAP_EVENTS, n_sweeps=sweeps,
+                          n_chains=chains, n_oracle_runs=runs, n_topics=20,
+                          alpha=0.5, eta=0.05, seed=OVERLAP_SEED,
+                          datatype=dt, device="cuda", workers=workers)
+        wall = time.perf_counter() - t0
+        say(card, f"overlap {dt}: {chains} chains on the card vs oracle "
+                  f"ens-{runs} ({workers} threads), {sweeps} sweeps, seed "
+                  f"{OVERLAP_SEED}: port_vs_oracle {r['port_vs_oracle']} "
+                  f"(the JAX engine {ref}), oracle ceiling "
+                  f"{r['oracle_vs_oracle']} (the reference's run "
+                  f"{ref_ceiling}); {wall:.1f} s")
+        say(card, f"overlap {dt}: {json.dumps(r)}")
+        if not (r["port_vs_oracle"] >= JUDGED_BAR
+                and r["port_vs_oracle"] >= r["oracle_vs_oracle"] - 0.02):
+            raise AssertionError(
+                f"overlap {dt}: port_vs_oracle {r['port_vs_oracle']} under "
+                f"{JUDGED_BAR} or under the ceiling "
+                f"{r['oracle_vs_oracle']} less 0.02")
+        out[dt] = r
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1361,13 +1647,22 @@ def main() -> int:
     phase_build(card)
     phase_kernels(card)
     rows = phase_step(card)
+    rows["sample_count"]["chains"] = phase_chain_step(card)
     rows.update(phase_k2_kernel(card))
     phase_fit(card)
     phase_fit_profile(card)
     with tempfile.TemporaryDirectory(prefix="onix_torch_smoke_") as tmp:
         root = pathlib.Path(tmp)
-        launches, table = phase_slice(card, root)
-        launches.update(phase_serve(card, root, table))
+        launches, table, recall = phase_slice(card, root / "day")
+        launches.update(phase_serve(card, root / "day", table))
+        chain_launches, _, chain_recall = phase_slice(card, root / "chains",
+                                                      chains=8)
+    say(card, f"slice: recall at 8 chains {chain_recall:.4f}, at one "
+              f"chain {recall:.4f}")
+    rows["sample_count"]["chains"]["launches"] = \
+        chain_launches["sample_count"]
+    say(card, f"phases 1-6 passed in {time.perf_counter() - t0:.1f} s")
+    phase_overlap(card)
     for name, row in rows.items():
         row["launches"] = launches[name]
     say(card, f"all phases passed in {time.perf_counter() - t0:.1f} s")

@@ -25,6 +25,17 @@
 // product is contracted into an FMA). The argmax keeps the first
 // maximum, as jnp.argmax and torch.argmax do.
 //
+// Chains. The reference runs C independent chains under `vmap`
+// (onix/models/lda_gibbs.py:1131-1158): each chain has its own counts,
+// noise and topics, and all share the block's token ids and mask. Here
+// the chain is blockIdx.y of both kernels: a CTA offsets each per-chain
+// operand (n_dk, n_wk, n_k, noise, z and z_new, and the targets with
+// their sources) by its chain's stride, given in elements, and the
+// shared ids are read as they are. One call still launches one sample
+// and one apply kernel, whatever C; C = 1 launches the one-chain grid.
+// A chain stride need not be the operand's size: the fit's z operand is
+// the strided view z[:, i] of its [C, n_blocks, B] state.
+//
 // One C function, `onix_gibbs_block`, launches two kernels on the
 // caller's stream: `sample_kernel` (or, for K above about 4,000,
 // `sample_row_kernel`) writes z_new to a scratch buffer and changes no
@@ -50,7 +61,9 @@
 // n_wk rows repeat within a block (V = 504 words at the main path), so
 // counted once per touched row, a main-path block (B = 65,536, K = 20,
 // D = 20,575) needs about 7.6 MB read, 2.3 us; the apply kernel
-// read-modify-writes the touched rows once more. The arithmetic (three
+// read-modify-writes the touched rows once more. C chains move C times
+// the per-chain bytes (counts, noise, z); the shared ids are the same
+// for every chain and come from L2 after the first. The arithmetic (three
 // logs, or one log and two divisions, per topic) is far below the
 // card's f32 rate. There is no matrix product: the tensor cores do not
 // apply, and the kernel would be bound by bytes if they did.
@@ -100,6 +113,14 @@ namespace {
 constexpr int kThreads = 256;       // threads per CTA, both kernels
 constexpr int kTileElems = 1024;    // T*K elements per sample CTA
 constexpr int kSmemFloats = 12288;  // a sample CTA's shared memory, 48 KB
+constexpr int kMaxChains = 65535;   // gridDim.y
+
+// Each per-chain operand's chain stride, in elements. The targets of the
+// apply kernel step with their sources: the word target with n_wk, the
+// doc target with n_dk, the topic-total target with n_k, z_out with z.
+struct ChainStrides {
+  int64_t dk, wk, k, noise, z, zn;
+};
 
 // The score of one element, given the topic-total term of its column:
 // log(nk + v_eta) for the Gumbel form, nk + v_eta for the race, with
@@ -127,8 +148,15 @@ __global__ void __launch_bounds__(kThreads) sample_kernel(
     const int32_t* __restrict__ d, const int32_t* __restrict__ w,
     const int32_t* __restrict__ z_old, const float* __restrict__ mask,
     int32_t* __restrict__ z_new, int n_tokens, int k_topics, int tile,
-    float alpha, float eta, float v_eta, int use_gumbel) {
+    float alpha, float eta, float v_eta, int use_gumbel, ChainStrides cs) {
   extern __shared__ float smem[];
+  const int64_t c = blockIdx.y;
+  n_dk += c * cs.dk;
+  n_wk += c * cs.wk;
+  n_k += c * cs.k;
+  noise += c * cs.noise;
+  z_old += c * cs.z;
+  z_new += c * cs.zn;
   const int stride = k_topics | 1;
   float* s_score = smem;                               // [tile][stride]
   float* s_nk = s_score + tile * stride;               // [2][K]
@@ -226,9 +254,16 @@ __global__ void __launch_bounds__(kThreads) sample_row_kernel(
     const int32_t* __restrict__ d, const int32_t* __restrict__ w,
     const int32_t* __restrict__ z_old, const float* __restrict__ mask,
     int32_t* __restrict__ z_new, int k_topics, float alpha, float eta,
-    float v_eta, int use_gumbel) {
+    float v_eta, int use_gumbel, ChainStrides cs) {
   __shared__ float s_best[kThreads / 32];
   __shared__ int s_arg[kThreads / 32];
+  const int64_t c = blockIdx.y;
+  n_dk += c * cs.dk;
+  n_wk += c * cs.wk;
+  n_k += c * cs.k;
+  noise += c * cs.noise;
+  z_old += c * cs.z;
+  z_new += c * cs.zn;
   const int t = blockIdx.x;
   const int zo = z_old[t];
   if (!(mask[t] > 0.0f)) {
@@ -287,8 +322,15 @@ __global__ void __launch_bounds__(kThreads) apply_kernel(
     const int32_t* __restrict__ z_new, const int32_t* z_old,
     const int32_t* __restrict__ d, const int32_t* __restrict__ w,
     int32_t* word_target, int32_t* doc_target, int32_t* nk_target,
-    int32_t* z_out, int n_tokens, int k_topics) {
+    int32_t* z_out, int n_tokens, int k_topics, ChainStrides cs) {
   extern __shared__ int s_dnk[];   // [K] when nk_target is set
+  const int64_t c = blockIdx.y;
+  z_new += c * cs.zn;
+  z_old += c * cs.z;
+  if (word_target != nullptr) word_target += c * cs.wk;
+  if (doc_target != nullptr) doc_target += c * cs.dk;
+  if (nk_target != nullptr) nk_target += c * cs.k;
+  if (z_out != nullptr) z_out += c * cs.z;
   if (nk_target != nullptr) {
     for (int k = threadIdx.x; k < k_topics; k += blockDim.x) s_dnk[k] = 0;
     __syncthreads();
@@ -331,52 +373,63 @@ size_t sample_smem(int tile, int k_topics) {
              * sizeof(float) + 4 * (size_t)tile * sizeof(int);
 }
 
+// The 16-byte loads must be aligned at every chain's offset, not only
+// at the base pointers: each chain stride a multiple of 4 elements.
 bool vector_form(const void* n_dk, const void* n_wk, const void* noise,
-                 int k_topics) {
+                 int k_topics, int n_chains, const ChainStrides& cs) {
+  const bool strides = n_chains == 1
+      || (cs.dk % 4 == 0 && cs.wk % 4 == 0 && cs.noise % 4 == 0);
   return k_topics % 4 == 0 && aligned16(noise) && aligned16(n_dk)
-         && aligned16(n_wk);
+         && aligned16(n_wk) && strides;
 }
 
 }  // namespace
 
 // Sample the block from the counts as they are, then apply its deltas
-// to the non-null targets; both kernels on `stream`. z_new is the
-// sample's output (scratch for the in-place step). Returns
-// cudaGetLastError() after the second launch (0 = both launched), or
-// the first error met. An empty block launches nothing.
+// to the non-null targets; both kernels on `stream`, each with one grid
+// row (blockIdx.y) a chain. z_new is the sample's output (scratch for
+// the in-place step). s_* are the chain strides, in elements, of n_dk,
+// n_wk, n_k, noise, z (z_old and z_out) and z_new; they are not read
+// when n_chains is 1. Returns cudaGetLastError() after the second
+// launch (0 = both launched), or the first error met. An empty block
+// launches nothing.
 extern "C" int onix_gibbs_block(
     const void* n_dk, const void* n_wk, const void* n_k, const void* noise,
     const void* d, const void* w, const void* z_old, const void* mask,
     void* z_new, void* word_target, void* doc_target, void* nk_target,
     void* z_out, int n_tokens, int k_topics, float alpha, float eta,
-    float v_eta, int use_gumbel, void* stream) {
+    float v_eta, int use_gumbel, int n_chains, long long s_dk,
+    long long s_wk, long long s_k, long long s_noise, long long s_z,
+    long long s_zn, void* stream) {
   if (n_tokens <= 0) return (int)cudaSuccess;
-  if (k_topics < 1) return (int)cudaErrorInvalidValue;
+  if (k_topics < 1 || n_chains < 1 || n_chains > kMaxChains)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const ChainStrides cs{s_dk, s_wk, s_k, s_noise, s_z, s_zn};
   if (sample_smem(1, k_topics) > kSmemFloats * sizeof(float)) {
-    sample_row_kernel<<<n_tokens, kThreads, 0, s>>>(
+    sample_row_kernel<<<dim3(n_tokens, n_chains), kThreads, 0, s>>>(
         (const int32_t*)n_dk, (const int32_t*)n_wk, (const int32_t*)n_k,
         (const float*)noise, (const int32_t*)d, (const int32_t*)w,
         (const int32_t*)z_old, (const float*)mask, (int32_t*)z_new,
-        k_topics, alpha, eta, v_eta, use_gumbel);
+        k_topics, alpha, eta, v_eta, use_gumbel, cs);
   } else {
-    const bool vec = vector_form(n_dk, n_wk, noise, k_topics);
+    const bool vec = vector_form(n_dk, n_wk, noise, k_topics, n_chains, cs);
     const int tile = std::max(1, kTileElems / k_topics);
     auto kernel = vec ? sample_kernel<true> : sample_kernel<false>;
-    kernel<<<(n_tokens + tile - 1) / tile, kThreads,
+    kernel<<<dim3((n_tokens + tile - 1) / tile, n_chains), kThreads,
              sample_smem(tile, k_topics), s>>>(
         (const int32_t*)n_dk, (const int32_t*)n_wk, (const int32_t*)n_k,
         (const float*)noise, (const int32_t*)d, (const int32_t*)w,
         (const int32_t*)z_old, (const float*)mask, (int32_t*)z_new,
-        n_tokens, k_topics, tile, alpha, eta, v_eta, use_gumbel);
+        n_tokens, k_topics, tile, alpha, eta, v_eta, use_gumbel, cs);
   }
   const int err = (int)cudaGetLastError();
   if (err != (int)cudaSuccess) return err;
   const size_t smem_apply = nk_target ? k_topics * sizeof(int) : 0;
-  apply_kernel<<<(n_tokens + kThreads - 1) / kThreads, kThreads, smem_apply,
-                 s>>>(
+  apply_kernel<<<dim3((n_tokens + kThreads - 1) / kThreads, n_chains),
+                 kThreads, smem_apply, s>>>(
       (const int32_t*)z_new, (const int32_t*)z_old, (const int32_t*)d,
       (const int32_t*)w, (int32_t*)word_target, (int32_t*)doc_target,
-      (int32_t*)nk_target, (int32_t*)z_out, n_tokens, k_topics);
+      (int32_t*)nk_target, (int32_t*)z_out, n_tokens, k_topics, cs);
   return (int)cudaGetLastError();
 }

@@ -20,10 +20,20 @@ Shapes: K topics, V vocabulary, D documents, N tokens. Counts are
 int32 and exact; padding tokens carry the sentinel topic K, which
 matches no one-hot column, so they touch no count.
 
+Chains. `lda.n_chains = C > 1` runs C independent chains on the same
+token blocks, as the reference's `vmap` branch does
+(`lda_gibbs.py:1131-1158`): every state array gains a leading chain
+axis (z [C, n_blocks, B], n_dk [C, D, K], ...), each block step is one
+K1 call for all C chains, and the fit returns θ [C, D, K] and φ_wk
+[C, V, K], which scoring combines by a geometric mean over chains. One
+chain keeps its own arrays without the axis, as in the reference.
+
 Random numbers come from a noise source (`TorchNoise` by default: a
 `torch.Generator` on the fit's device). The source is one object that
 `GibbsLDA.fit` takes, so the tests can hand in a replay of the
-reference's JAX key stream and compare the two chains draw for draw.
+reference's JAX key stream and compare the two fits draw for draw. A
+source for C chains gives the init's topics for the whole [C, n_blocks,
+B] state and one [C, B, K] draw a block.
 """
 
 from __future__ import annotations
@@ -44,36 +54,56 @@ from onix_torch.models.sample_count import gibbs_block_step_
 SUPERSTEP_DEFAULT = 10
 
 
+# Block size from which the reference refuses the one-hot matmul form of
+# the n_wk update (`lda_gibbs.py:744-748`): its f32 accumulation is no
+# longer exact there.
+NWK_MATMUL_MAX_BLOCK = 1 << 24
+
+
 def check_supported(config: LDAConfig) -> None:
     """Raise NotImplementedError for the LDA settings the port does
-    not run yet."""
-    if config.n_chains > 1:
-        raise not_ported("lda.n_chains > 1", "slice 1, item 'chains'")
+    not run yet.
+
+    Every `lda.nwk_form` runs: the reference documents that its forms
+    ("scatter", "matmul", "pallas") give the same draws and counts
+    (`lda_gibbs.py:703-704`), and the port has one form for them all,
+    K1's in-place step on the card and `gibbs_block_step_plain` on the
+    CPU."""
     if config.checkpoint_every > 0:
         raise not_ported("lda.checkpoint_every > 0",
                          "slice 1, item 'checkpoint resume'")
     if config.sampler_form == "sparse":
         raise not_ported("lda.sampler_form='sparse'",
                          "slice 4 (sparse sampler)")
-    if config.nwk_form != "auto":
-        raise not_ported(f"lda.nwk_form={config.nwk_form!r}",
-                         "slice 1, item 'count-update forms'")
+
+
+def check_block(config: LDAConfig, block: int) -> None:
+    """The reference's refusal of the matmul form at a block of 2^24
+    tokens or more, so that the same configs fail in both packages."""
+    if config.nwk_form == "matmul" and block >= NWK_MATMUL_MAX_BLOCK:
+        raise ValueError(
+            f"nwk matmul form with block size {block} >= 2^24: "
+            "the one-hot matmul's f32 accumulation is no longer "
+            "bit-exact at this block size")
 
 
 @dataclasses.dataclass
 class GibbsState:
+    """One chain's state; C chains put a leading C on every tensor."""
     z: torch.Tensor        # int32 [n_blocks, B] topic per token (K = pad)
     n_dk: torch.Tensor     # int32 [D, K] doc-topic counts
     n_wk: torch.Tensor     # int32 [V, K] word-topic counts
     n_k: torch.Tensor      # int32 [K]    topic totals
     acc_ndk: torch.Tensor  # float32 [D, K] posterior-mean sums
     acc_nwk: torch.Tensor  # float32 [V, K]
-    n_acc: int             # number of accumulated sweeps
+    n_acc: int             # number of accumulated sweeps (every chain)
 
 
 class TorchNoise:
     """The fit's random numbers, from one `torch.Generator` on the
-    device: the init's topics, then one [B, K] f32 draw per block.
+    device: the init's topics, then one [B, K] f32 draw per block, or
+    for `n_chains` > 1 one [C, B, K] draw per block (one `torch.rand`
+    for every chain, so the noise launches do not grow with C).
 
     The draws follow the reference's distributions: uniforms on
     [1e-38, 1) for the exponential race (JAX's `minval=1e-38`), and
@@ -81,10 +111,11 @@ class TorchNoise:
     Gumbel form, as `jax.random.gumbel` computes it. The numbers differ
     from JAX's threefry stream."""
 
-    def __init__(self, seed: int, device: torch.device):
+    def __init__(self, seed: int, device: torch.device, n_chains: int = 1):
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
+        self.lead = (n_chains,) if n_chains > 1 else ()
 
     def init_topics(self, shape, n_topics: int) -> torch.Tensor:
         return torch.randint(0, n_topics, tuple(shape),
@@ -92,24 +123,19 @@ class TorchNoise:
                              dtype=torch.int32)
 
     def block(self, b: int, k: int, use_gumbel: bool) -> torch.Tensor:
-        u = torch.rand((b, k), generator=self.generator, device=self.device,
-                       dtype=torch.float32)
+        u = torch.rand((*self.lead, b, k), generator=self.generator,
+                       device=self.device, dtype=torch.float32)
         if use_gumbel:
             u.clamp_min_(torch.finfo(torch.float32).tiny)
             return -torch.log(-torch.log(u))
         return u.clamp_min_(1e-38)
 
 
-def init_state(docs: torch.Tensor, words: torch.Tensor, mask: torch.Tensor,
-               n_docs: int, n_vocab: int, n_topics: int,
-               noise) -> GibbsState:
-    """Random topic init + exact count build (the reference's
-    `init_state_keyed`, `lda_gibbs.py:58`): topics from
-    `noise.init_topics`, the pad sentinel K on padding tokens, and the
-    counts of the real tokens."""
+def _counts(z: torch.Tensor, docs: torch.Tensor, words: torch.Tensor,
+            mask: torch.Tensor, n_docs: int, n_vocab: int, n_topics: int):
+    """Exact (n_dk, n_wk, n_k) of one chain's topics over the real
+    tokens."""
     device = docs.device
-    z = noise.init_topics(docs.shape, n_topics).to(device)
-    z = torch.where(mask > 0, z, torch.full_like(z, n_topics))
     real = mask > 0
     zr = z[real].to(torch.int64)
     ones = torch.ones_like(zr, dtype=torch.int32)
@@ -121,12 +147,49 @@ def init_state(docs: torch.Tensor, words: torch.Tensor, mask: torch.Tensor,
     n_wk.view(-1).index_add_(0, words[real].to(torch.int64) * n_topics + zr,
                              ones)
     n_k.index_add_(0, zr, ones)
+    return n_dk, n_wk, n_k
+
+
+def _initial_topics(noise, shape, mask: torch.Tensor, n_topics: int):
+    """Topics from `noise.init_topics`, the pad sentinel K on padding."""
+    z = noise.init_topics(shape, n_topics).to(mask.device)
+    return torch.where(mask > 0, z, torch.full_like(z, n_topics))
+
+
+def init_state(docs: torch.Tensor, words: torch.Tensor, mask: torch.Tensor,
+               n_docs: int, n_vocab: int, n_topics: int,
+               noise) -> GibbsState:
+    """Random topic init + exact count build (the reference's
+    `init_state_keyed`, `lda_gibbs.py:58`): topics from
+    `noise.init_topics`, the pad sentinel K on padding tokens, and the
+    counts of the real tokens."""
+    z = _initial_topics(noise, docs.shape, mask, n_topics)
+    n_dk, n_wk, n_k = _counts(z, docs, words, mask, n_docs, n_vocab,
+                              n_topics)
     return GibbsState(
         z=z, n_dk=n_dk, n_wk=n_wk, n_k=n_k,
         acc_ndk=torch.zeros((n_docs, n_topics), dtype=torch.float32,
-                            device=device),
+                            device=docs.device),
         acc_nwk=torch.zeros((n_vocab, n_topics), dtype=torch.float32,
-                            device=device),
+                            device=docs.device),
+        n_acc=0)
+
+
+def init_chains(docs: torch.Tensor, words: torch.Tensor,
+                mask: torch.Tensor, n_docs: int, n_vocab: int,
+                n_topics: int, noise, n_chains: int) -> GibbsState:
+    """Stacked state for `n_chains` independent chains, a leading chain
+    axis on every tensor (the reference's `init_chains`,
+    `lda_gibbs.py:112`): topics for the whole [C, n_blocks, B] state
+    from `noise.init_topics`, then each chain's exact counts."""
+    z = _initial_topics(noise, (n_chains, *docs.shape), mask, n_topics)
+    n_dk, n_wk, n_k = (torch.stack(t) for t in zip(*(
+        _counts(z[c], docs, words, mask, n_docs, n_vocab, n_topics)
+        for c in range(n_chains))))
+    return GibbsState(
+        z=z, n_dk=n_dk, n_wk=n_wk, n_k=n_k,
+        acc_ndk=torch.zeros_like(n_dk, dtype=torch.float32),
+        acc_nwk=torch.zeros_like(n_wk, dtype=torch.float32),
         n_acc=0)
 
 
@@ -134,10 +197,12 @@ def block_step(state: GibbsState, i: int, d: torch.Tensor, w: torch.Tensor,
                m: torch.Tensor, noise_block: torch.Tensor, *, alpha: float,
                eta: float, v_eta: float, use_gumbel: bool) -> None:
     """Sample block `i` of the sweep from the counts as they stand and
-    fold its deltas into the counts, in place: one call of K1."""
-    gibbs_block_step_(state.n_dk, state.n_wk, state.n_k, state.z[i],
-                      noise_block, d, w, m, alpha=alpha, eta=eta,
-                      v_eta=v_eta, use_gumbel=use_gumbel)
+    fold its deltas into the counts, in place: one call of K1, for every
+    chain of a chained state (its block is the strided view z[:, i])."""
+    z = state.z[i] if state.z.dim() == 2 else state.z[:, i]
+    gibbs_block_step_(state.n_dk, state.n_wk, state.n_k, z, noise_block,
+                      d, w, m, alpha=alpha, eta=eta, v_eta=v_eta,
+                      use_gumbel=use_gumbel)
 
 
 def sweep(state: GibbsState, docs: torch.Tensor, words: torch.Tensor,
@@ -149,7 +214,7 @@ def sweep(state: GibbsState, docs: torch.Tensor, words: torch.Tensor,
     `acc + a * n` with a = 1.0, and skipping it to a = 0.0."""
     v_eta = n_vocab * eta
     n_blocks, b = docs.shape
-    k_topics = state.n_k.shape[0]
+    k_topics = state.n_k.shape[-1]
     for i in range(n_blocks):
         block_step(state, i, docs[i], words[i], mask[i],
                    noise.block(b, k_topics, use_gumbel), alpha=alpha,
@@ -228,7 +293,8 @@ def run_fit_segments(state, start: int, segments, *, superstep_fn,
 def posterior_estimates(state: GibbsState, *, alpha: float, eta: float
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """(theta [D,K], phi_wk [V,K]) from averaged (or instantaneous)
-    counts."""
+    counts; [C, D, K] and [C, V, K] for a chained state, chain by chain
+    as the reference's `vmap` of it."""
     if state.n_acc > 0:
         denom = float(max(state.n_acc, 1))
         ndk = state.acc_ndk / denom
@@ -237,9 +303,9 @@ def posterior_estimates(state: GibbsState, *, alpha: float, eta: float
         ndk = state.n_dk.to(torch.float32)
         nwk = state.n_wk.to(torch.float32)
     theta = (ndk + alpha) / (ndk.sum(-1, keepdim=True)
-                             + ndk.shape[1] * alpha)
-    nk = nwk.sum(dim=0, keepdim=True)
-    phi_wk = (nwk + eta) / (nk + nwk.shape[0] * eta)
+                             + ndk.shape[-1] * alpha)
+    nk = nwk.sum(dim=-2, keepdim=True)
+    phi_wk = (nwk + eta) / (nk + nwk.shape[-2] * eta)
     return theta, phi_wk
 
 
@@ -247,8 +313,12 @@ def log_likelihood(theta: torch.Tensor, phi_wk: torch.Tensor,
                    docs: torch.Tensor, words: torch.Tensor,
                    mask: torch.Tensor) -> torch.Tensor:
     """Mean per-token log p(w|d), accumulated block by block so no
-    [N, K] temporary is built. Returns a 0-d f32 tensor on the device
-    (no host sync)."""
+    [N, K] temporary is built. Chained θ [C, D, K] / φ_wk [C, V, K] give
+    the mean over chains of each chain's value, as the reference's
+    `ll_chains`. Returns a 0-d f32 tensor on the device (no host
+    sync)."""
+    if theta.dim() == 3:
+        return _chains_log_likelihood(theta, phi_wk, docs, words, mask)
     total = torch.zeros((), dtype=torch.float32, device=theta.device)
     n = torch.zeros((), dtype=torch.float32, device=theta.device)
     for d, w, m in zip(docs, words, mask):
@@ -259,9 +329,21 @@ def log_likelihood(theta: torch.Tensor, phi_wk: torch.Tensor,
     return total / torch.clamp_min(n, 1.0)
 
 
+def _chains_log_likelihood(theta, phi_wk, docs, words, mask):
+    total = torch.zeros(theta.shape[0], dtype=torch.float32,
+                        device=theta.device)
+    n = torch.zeros((), dtype=torch.float32, device=theta.device)
+    for d, w, m in zip(docs, words, mask):
+        p = torch.sum(theta[:, d] * phi_wk[:, w], dim=-1)
+        lp = torch.log(torch.clamp_min(p, 1e-30)) * m
+        total = total + lp.sum(dim=-1)
+        n = n + m.sum()
+    return (total / torch.clamp_min(n, 1.0)).mean()
+
+
 class GibbsLDA:
     """Host-side fit loop: the port of the reference's `GibbsLDA`
-    (one chain, dense sampler, no checkpoints).
+    (dense sampler, any number of chains, no checkpoints).
 
     `device` defaults to "cuda" and raises without a card. `sampler`
     pins the categorical draw ("gumbel" | "race"); None follows the
@@ -305,18 +387,25 @@ class GibbsLDA:
         with the burn-in fold, and the posterior estimates.
 
         `noise` is the random source (default: a `TorchNoise` seeded
-        with `config.seed` on the fit's device). `callback(sweep, state,
-        ll)` makes every segment one sweep long, as in the reference.
-        Returns {"state", "theta" [D,K], "phi_wk" [V,K] (numpy f32),
-        "ll_history"}."""
+        with `config.seed` on the fit's device, for `config.n_chains`
+        chains). `callback(sweep, state, ll)` makes every segment one
+        sweep long, as in the reference. Returns {"state", "theta"
+        [D,K], "phi_wk" [V,K] (numpy f32; [C,D,K] and [C,V,K] for C > 1
+        chains), "ll_history"}; the ll is the mean over chains."""
         cfg = self.config
         n_sweeps = cfg.n_sweeps if n_sweeps is None else n_sweeps
         S = cfg.superstep or SUPERSTEP_DEFAULT
         docs, words, mask = self.prepare(corpus)
+        check_block(cfg, docs.shape[1])
+        chains = cfg.n_chains
         if noise is None:
-            noise = TorchNoise(cfg.seed, self.device)
-        state = init_state(docs, words, mask, self.n_docs, self.n_vocab,
-                           cfg.n_topics, noise)
+            noise = TorchNoise(cfg.seed, self.device, n_chains=chains)
+        if chains == 1:
+            state = init_state(docs, words, mask, self.n_docs, self.n_vocab,
+                               cfg.n_topics, noise)
+        else:
+            state = init_chains(docs, words, mask, self.n_docs,
+                                self.n_vocab, cfg.n_topics, noise, chains)
 
         def ll_of(st):
             theta, phi = posterior_estimates(st, alpha=cfg.alpha,

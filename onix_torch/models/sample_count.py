@@ -19,7 +19,8 @@ On CUDA tensors each launches the kernels or raises; on CPU tensors it
 runs its plain version (`sample_count_plain`, `gibbs_block_step_plain`:
 the same function in PyTorch ops, which the CPU tests use and the card
 holds the kernels against). Nothing falls back. `launches` counts the
-calls that launched the kernels (a plain integer): one per block.
+calls that launched the kernels (a plain integer): one per block, for
+all chains together.
 
 Unlike the Pallas kernel, which took pre-gathered [B, K] rows, both
 forms take the whole count tables and the token ids and gather the rows
@@ -95,7 +96,16 @@ def gibbs_block_step_plain(n_dk, n_wk, n_k, z, noise, d, w, mask, *,
                            use_gumbel: bool) -> None:
     """The block step in PyTorch ops, in place: every token drawn from
     the counts as they are (`sample_count_plain`), then the deltas
-    added, as the reference's block step does."""
+    added, as the reference's block step does. Chained operands
+    ([C, ...], ids shared) step chain by chain, each chain exactly as a
+    one-chain call on its slices."""
+    if n_dk.dim() == 3:
+        for c in range(n_dk.shape[0]):
+            gibbs_block_step_plain(n_dk[c], n_wk[c], n_k[c], z[c],
+                                   noise[c], d, w, mask, alpha=alpha,
+                                   eta=eta, v_eta=v_eta,
+                                   use_gumbel=use_gumbel)
+        return
     z_new, d_wk = sample_count_plain(n_dk, n_wk, n_k, noise, d, w, z, mask,
                                      alpha=alpha, eta=eta, v_eta=v_eta,
                                      use_gumbel=use_gumbel)
@@ -106,19 +116,38 @@ def gibbs_block_step_plain(n_dk, n_wk, n_k, z, noise, d, w, mask, *,
     z.copy_(z_new)
 
 
-def _check(n_dk, n_wk, n_k, noise, d, w, z, mask, z_name: str):
-    k_topics = n_dk.shape[1] if n_dk.dim() == 2 else -1
+def _chain_contiguous(t, chained: bool) -> bool:
+    """Contiguous, except that a chained operand's leading (chain)
+    stride may exceed its chain's size, as in the view z[:, i] of a
+    [C, n_blocks, B] state; chains must not overlap."""
+    if not chained or t.shape[0] <= 1:
+        return t.is_contiguous()
+    return t[0].is_contiguous() and t.stride(0) >= t[0].numel()
+
+
+def _check(n_dk, n_wk, n_k, noise, d, w, z, mask, z_name: str, *,
+           chains: bool):
+    """Types, shapes, devices and layout of K1's operands. With
+    `chains`, n_dk may be [C, D, K]; then n_wk, n_k, noise and z carry
+    the same leading C and the ids and mask stay [B], shared."""
+    chained = chains and n_dk.dim() == 3
+    lead = (n_dk.shape[0],) if chained else ()
+    k_topics = n_dk.shape[-1] if n_dk.dim() == len(lead) + 2 else -1
     b = d.shape[0] if d.dim() == 1 else -1
+
+    def rows(t):
+        return t.shape[-2] if t.dim() >= 2 else -1
     want = {
-        "n_dk": (n_dk, torch.int32, (n_dk.shape[0], k_topics)),
-        "n_wk": (n_wk, torch.int32, (n_wk.shape[0], k_topics)),
-        "n_k": (n_k, torch.int32, (k_topics,)),
-        "noise": (noise, torch.float32, (b, k_topics)),
+        "n_dk": (n_dk, torch.int32, (*lead, rows(n_dk), k_topics)),
+        "n_wk": (n_wk, torch.int32, (*lead, rows(n_wk), k_topics)),
+        "n_k": (n_k, torch.int32, (*lead, k_topics)),
+        "noise": (noise, torch.float32, (*lead, b, k_topics)),
         "d": (d, torch.int32, (b,)),
         "w": (w, torch.int32, (b,)),
-        z_name: (z, torch.int32, (b,)),
+        z_name: (z, torch.int32, (*lead, b)),
         "mask": (mask, torch.float32, (b,)),
     }
+    per_chain = {"n_dk", "n_wk", "n_k", "noise", z_name}
     device = n_dk.device
     for name, (t, dtype, shape) in want.items():
         if t.dtype != dtype:
@@ -128,8 +157,9 @@ def _check(n_dk, n_wk, n_k, noise, d, w, z, mask, z_name: str):
                              f"{tuple(t.shape)}")
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, n_dk on {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        if not _chain_contiguous(t, chained and name in per_chain):
+            raise ValueError(f"{name} must be contiguous"
+                             + (" within each chain" if chained else ""))
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"K1 runs on cuda or cpu, not {device}")
 
@@ -153,8 +183,10 @@ def sample_count_block(n_dk, n_wk, n_k, noise, d, w, z_old, mask, *,
     d_wk = sum_t onehot(w_t) (x) (onehot(z_new_t) - onehot(z_old_t)).
 
     CUDA tensors go through the kernels, CPU tensors through
-    `sample_count_plain`; anything else raises."""
-    _check(n_dk, n_wk, n_k, noise, d, w, z_old, mask, "z_old")
+    `sample_count_plain`; anything else raises. One chain only, as the
+    TPU kernel's contract."""
+    _check(n_dk, n_wk, n_k, noise, d, w, z_old, mask, "z_old",
+           chains=False)
     kw = dict(alpha=alpha, eta=eta, v_eta=v_eta, use_gumbel=use_gumbel)
     if n_dk.device.type == "cpu":
         return sample_count_plain(n_dk, n_wk, n_k, noise, d, w, z_old,
@@ -174,17 +206,24 @@ def gibbs_block_step_(n_dk, n_wk, n_k, z, noise, d, w, mask, *,
     n_wk[w] and n_k and write the new topics into `z`.
 
     Args as `sample_count_block`, with `z` int32 [B] the block's current
-    topics (a row of the fit's [n_blocks, B] z), updated in place.
+    topics (a row of the fit's [n_blocks, B] z), updated in place. For C
+    chains every per-chain operand gains a leading C: n_dk [C, D, K],
+    n_wk [C, V, K], n_k [C, K], noise [C, B, K] and z [C, B], which may
+    be the strided view z[:, i] of a [C, n_blocks, B] state (its chain
+    stride is passed to the kernels, and nothing is copied); d, w and
+    mask stay [B], shared by every chain, as the reference broadcasts
+    them under `vmap`.
 
-    CUDA tensors go through the kernels (one call: a sample kernel, then
-    an apply kernel, and no other launch), CPU tensors through
-    `gibbs_block_step_plain`; anything else raises."""
-    _check(n_dk, n_wk, n_k, noise, d, w, z, mask, "z")
+    CUDA tensors go through the kernels (one call for all chains: a
+    sample kernel, then an apply kernel, and no other launch), CPU
+    tensors through `gibbs_block_step_plain`; anything else raises."""
+    _check(n_dk, n_wk, n_k, noise, d, w, z, mask, "z", chains=True)
     kw = dict(alpha=alpha, eta=eta, v_eta=v_eta, use_gumbel=use_gumbel)
     if n_dk.device.type == "cpu":
         gibbs_block_step_plain(n_dk, n_wk, n_k, z, noise, d, w, mask, **kw)
         return
-    _launch(n_dk, n_wk, n_k, noise, d, w, z, mask, torch.empty_like(z),
+    _launch(n_dk, n_wk, n_k, noise, d, w, z, mask,
+            torch.empty(z.shape, dtype=z.dtype, device=z.device),
             word=n_wk, doc=n_dk, nk=n_k, z_out=z, **kw)
 
 
@@ -192,11 +231,16 @@ def _launch(n_dk, n_wk, n_k, noise, d, w, z_old, mask, z_new, *, word,
             doc=None, nk=None, z_out=None, alpha: float, eta: float,
             v_eta: float, use_gumbel: bool) -> None:
     """One call of `onix_gibbs_block` on the current stream: sample into
-    `z_new`, then apply the deltas to the non-None targets."""
+    `z_new`, then apply the deltas to the non-None targets. A leading
+    chain axis on n_dk runs every chain in the same two kernels."""
     global launches
-    b, k_topics = int(d.shape[0]), int(n_dk.shape[1])
+    b, k_topics = int(d.shape[0]), int(n_dk.shape[-1])
     if b == 0:
         return
+    chained = n_dk.dim() == 3
+    n_chains = int(n_dk.shape[0]) if chained else 1
+    strides = [t.stride(0) if chained else 0
+               for t in (n_dk, n_wk, n_k, noise, z_old, z_new)]
     lib = _library()
 
     def ptr(t):
@@ -209,7 +253,7 @@ def _launch(n_dk, n_wk, n_k, noise, d, w, z_old, mask, z_new, *, word,
             noise.data_ptr(), d.data_ptr(), w.data_ptr(), z_old.data_ptr(),
             mask.data_ptr(), z_new.data_ptr(), ptr(word), ptr(doc), ptr(nk),
             ptr(z_out), b, k_topics, float(alpha), float(eta), float(v_eta),
-            int(bool(use_gumbel)), stream)
+            int(bool(use_gumbel)), n_chains, *strides, stream)
     if err != 0:
         raise RuntimeError(f"K1 kernel launch failed: CUDA error {err}")
     launches += 1
@@ -220,6 +264,7 @@ def _library():
     lib = kernels.load("sample_count")
     if lib.onix_gibbs_block.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.onix_gibbs_block.argtypes = [p] * 13 + [i, i, f, f, f, i, p]
+        lib.onix_gibbs_block.argtypes = ([p] * 13 + [i, i, f, f, f, i, i]
+                                         + [ctypes.c_longlong] * 6 + [p])
         lib.onix_gibbs_block.restype = ctypes.c_int
     return lib

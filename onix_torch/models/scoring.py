@@ -7,6 +7,12 @@ strategies and their gates: a θ·φᵀ table plus a flat gather, a
 (doc, word) dedup, or a chunked gather-dot. θ·φᵀ is one `torch.matmul`
 in full f32 (the reference leaves it to XLA outside any Pallas kernel).
 
+Multi-chain estimates (θ [C, D, K], φ_wk [C, V, K] from
+`lda.n_chains > 1`) combine per-chain probabilities by a geometric mean,
+exp(mean_c log max(p_c, 1e-38)), as the reference does: an event must
+be improbable under every chain to stay in the bottom-k
+(docs/OVERLAP.md). `doc_rarity` averages its per-chain scores.
+
 Sums over K run in another order than XLA's, so scores agree with the
 reference to a few ulps, not bit for bit.
 """
@@ -18,7 +24,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from onix_torch import not_ported
 from onix_torch.device import resolve_device
 
 # D*V budget for materializing the score table (f32 elements): the
@@ -39,25 +44,38 @@ def as_device_tensor(x, device) -> torch.Tensor:
 
 
 def _two_d(theta):
+    """The bank's single-tenant oracle takes one chain, as the
+    reference's does."""
     if theta.ndim != 2:
-        raise not_ported("multi-chain theta/phi ([C, D, K])",
-                         "slice 1, item 'chains'")
+        raise ValueError("want one chain's theta [D, K], got shape "
+                         f"{tuple(theta.shape)}")
+
+
+def _geometric_mean(p: torch.Tensor) -> torch.Tensor:
+    """exp(mean over the leading chain axis of log max(p, 1e-38)), in
+    place on `p`."""
+    return torch.exp(p.clamp_min_(1e-38).log_().mean(dim=0))
 
 
 def score_events(theta: torch.Tensor, phi_wk: torch.Tensor,
                  doc_ids: torch.Tensor, word_ids: torch.Tensor
                  ) -> torch.Tensor:
     """p(word | doc) = sum_k theta[d,k] * phi_wk[w,k], one gather-dot
-    per event."""
-    _two_d(theta)
-    return torch.sum(theta[doc_ids].to(torch.float32)
-                     * phi_wk[word_ids].to(torch.float32), dim=-1)
+    per event; the geometric mean over chains for [C, ...] tables."""
+    if theta.ndim == 2:
+        return torch.sum(theta[doc_ids].to(torch.float32)
+                         * phi_wk[word_ids].to(torch.float32), dim=-1)
+    p = torch.sum(theta[:, doc_ids].to(torch.float32)
+                  * phi_wk[:, word_ids].to(torch.float32), dim=-1)
+    return _geometric_mean(p)
 
 
 def score_table(theta: torch.Tensor, phi_wk: torch.Tensor) -> torch.Tensor:
-    """The full [D, V] score matrix θ·φᵀ as one matmul."""
-    _two_d(theta)
-    return theta @ phi_wk.T
+    """The full [D, V] score matrix θ·φᵀ as one matmul; for [C, ...]
+    tables one batched matmul, then the geometric mean over chains."""
+    if theta.ndim == 2:
+        return theta @ phi_wk.T
+    return _geometric_mean(torch.matmul(theta, phi_wk.transpose(-1, -2)))
 
 
 def _gather_scores(table_flat: torch.Tensor, d: torch.Tensor,
@@ -85,10 +103,11 @@ def score_all(theta, phi_wk, doc_ids, word_ids, chunk: int = 1 << 22,
     n = doc_ids.shape[0]
     theta_t = as_device_tensor(theta, dev)
     phi_t = as_device_tensor(phi_wk, dev)
-    _two_d(theta_t)
     n_docs = int(theta_t.shape[-2])
     n_vocab = int(phi_t.shape[-2])
-    if (n and n_docs * n_vocab <= TABLE_MAX_ELEMS
+    chains = int(theta_t.shape[0]) if theta_t.ndim == 3 else 1
+    # The [C, D, V] build and its log temporaries stay in the budget.
+    if (n and chains * n_docs * n_vocab <= TABLE_MAX_ELEMS
             and n_docs * n_vocab <= 32 * n):
         table = score_table(theta_t, phi_t).reshape(-1)
         out = np.empty(n, np.float32)
@@ -234,10 +253,15 @@ def doc_rarity(theta: torch.Tensor, doc_weights: torch.Tensor
         share_k = sum_d n_d * theta[d, k] / sum_d n_d   (corpus topic mass)
         score_d = sum_k theta[d, k] * log(share_k)
 
-    (The reference's `doc_rarity`, one chain.)"""
-    _two_d(theta)
-    th = theta.to(torch.float32)
+    Chained θ [C, D, K] gives the arithmetic mean of the per-chain
+    scores (they are log-space values), as the reference's."""
     w = doc_weights.to(torch.float32)
-    mass = w @ th
-    share = mass / torch.clamp_min(mass.sum(), 1e-30)
-    return th @ torch.log(torch.clamp_min(share, 1e-30))
+
+    def one(th):
+        th = th.to(torch.float32)
+        mass = w @ th
+        share = mass / torch.clamp_min(mass.sum(), 1e-30)
+        return th @ torch.log(torch.clamp_min(share, 1e-30))
+    if theta.ndim == 2:
+        return one(theta)
+    return torch.stack([one(th) for th in theta]).mean(dim=0)

@@ -241,7 +241,9 @@ def select_suspicious_events(bundle: CorpusBundle, theta, phi_wk,
     """Score every event and select the bottom-`max_results` under
     `tol`, returning a scoring.TopK of EVENT indices.
 
-    When the θ·φᵀ table fits the budget and the corpus has the flow
+    Chained θ [C, D, K] / φ_wk [C, V, K] score by the geometric mean
+    over chains. When the θ·φᵀ table fits the budget and the corpus has
+    the flow
     [src|dst] (or the single-token) layout, events are scored by flat
     gathers from the table on the device (pair-min for flow);
     otherwise through token scoring and the host pair-min. Either way
@@ -252,9 +254,10 @@ def select_suspicious_events(bundle: CorpusBundle, theta, phi_wk,
     phi_t = scoring.as_device_tensor(phi_wk, dev)
     n_vocab = int(phi_t.shape[-2])
     n_docs = int(theta_t.shape[-2])
+    chains = int(theta_t.shape[0]) if theta_t.ndim == 3 else 1
     corpus = bundle.corpus
     n_real = bundle.n_real_tokens
-    table_fits = n_docs * n_vocab <= scoring.TABLE_MAX_ELEMS
+    table_fits = chains * n_docs * n_vocab <= scoring.TABLE_MAX_ELEMS
     single = _single_token_layout(bundle, n_events)
     if table_fits and (single or _flow_pair_layout(bundle, n_events)):
         table = scoring.score_table(theta_t, phi_t).reshape(-1)

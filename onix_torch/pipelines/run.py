@@ -62,8 +62,14 @@ def load_feedback(cfg: OnixConfig, datatype: str, date: str) -> pd.DataFrame | N
 def fit_engine(cfg: OnixConfig, bundle: CorpusBundle, engine: str,
                device: torch.device) -> dict:
     """Fit theta/phi_wk with the requested engine on the bundle's
-    corpus. The port runs the "gibbs" engine; "svi" and "sharded"
+    corpus. The port runs the "gibbs" engine, with any `lda.n_chains`
+    (θ [C, D, K] and φ_wk [C, V, K] for C > 1); "svi" and "sharded"
     raise NotImplementedError."""
+    if engine not in ("gibbs", "sharded") and cfg.lda.n_chains > 1:
+        raise ValueError(
+            f"lda.n_chains={cfg.lda.n_chains} is only implemented for the "
+            f"'gibbs' and 'sharded' engines; the {engine!r} engine would "
+            "silently run one chain")
     if engine == "svi":
         raise not_ported("the svi engine", "slice 3 (streaming and scale)")
     if engine == "sharded":

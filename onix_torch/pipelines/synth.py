@@ -1,8 +1,10 @@
-"""Synthetic flow day with planted anomalies.
+"""Synthetic flow, DNS and proxy days with planted anomalies.
 
-The port's own copy of `synth_flow_day` and its private helpers from
+The port's own copy of `synth_flow_day`, `synth_dns_day`,
+`synth_proxy_day`, their private helpers and the `SYNTH` table from
 `onix/pipelines/synth.py`, kept line for line so both packages make the
-same day from the same seed; the port imports nothing from `onix`.
+same day from the same seed; the port imports nothing from `onix`. (The
+columnar `*_arrays` forms come with the streaming slice.)
 
 Background traffic is ROLE-STRUCTURED: each host draws a mixture over a
 small set of behavior profiles (web browsing, DNS-heavy, backup, mail,
@@ -137,3 +139,217 @@ def synth_flow_day(n_events: int = 20000, n_hosts: int = 120,
         "obyt": (col(ibyt, a_ibyt) * 0.3).astype(np.int64),
     })
     return _shuffle(table, n_bg, n_events, rng)
+
+
+# ---------------------------------------------------------------------------
+# dns
+# ---------------------------------------------------------------------------
+
+# (domain pool, subdomain pool, qtype dist, peak_hour, hour_sd)
+_DNS_PROFILES = [
+    (["google.com", "gstatic.com", "youtube.com"],
+     ["www", "", "apis"], [1, 28], 13.0, 3.0),
+    (["github.com", "npmjs.org", "pypi.org"],
+     ["api", "registry", ""], [1, 28], 11.0, 2.5),
+    (["office365.com", "windowsupdate.com", "live.com"],
+     ["outlook", "login", "update"], [1], 10.0, 3.5),
+    (["netflix.com", "nflxvideo.net", "akamai.net"],
+     ["www", "cdn", "media"], [1, 28], 20.0, 2.5),
+    (["facebook.com", "fbcdn.net", "instagram.com"],
+     ["www", "static", "edge"], [1], 15.0, 4.0),
+]
+
+
+def synth_dns_day(n_events: int = 20000, n_hosts: int = 120,
+                  n_anomalies: int = 30, date: str = DEMO_DATE,
+                  seed: int = 0) -> tuple[pd.DataFrame, np.ndarray]:
+    """One day of DNS replies (tshark-style columns, SURVEY.md §2.1 #6).
+
+    Anomalies: DGA/tunnel-shaped — long high-entropy subdomains, TXT
+    queries, off-hours, NXDOMAIN mixes."""
+    rng = np.random.default_rng(seed)
+    hosts = _ips(n_hosts)
+    n_prof = len(_DNS_PROFILES)
+    mix = _host_mixture(rng, n_hosts, n_prof)
+
+    n_bg = n_events - n_anomalies
+    h_idx = rng.integers(0, n_hosts, n_bg)
+    u = rng.random(n_bg)
+    prof = np.clip((mix[h_idx].cumsum(axis=1) < u[:, None]).sum(axis=1),
+                   0, n_prof - 1)
+
+    qname, qtype, hour = [], [], []
+    for p in prof:
+        doms, subs, qts, mu, sd = _DNS_PROFILES[p]
+        sub = subs[rng.integers(0, len(subs))]
+        dom = doms[rng.integers(0, len(doms))]
+        qname.append(f"{sub}.{dom}" if sub else dom)
+        qtype.append(qts[rng.integers(0, len(qts))])
+        hour.append(np.clip(rng.normal(mu, sd), 0, 23.99))
+    qname = np.array(qname, dtype=object)
+    qtype = np.array(qtype, np.int32)
+    hour = np.array(hour)
+    rcode = np.zeros(n_bg, np.int32)
+    frame_len = (80 + 1.2 * np.char.str_len(qname.astype(str))
+                 + rng.integers(0, 12, n_bg)).astype(np.int32)
+
+    a_qname = _dga_names(rng, n_anomalies)
+    a_hour = rng.uniform(0, 6, n_anomalies)
+    a_qtype = rng.choice([16, 10, 255], n_anomalies).astype(np.int32)  # TXT/NULL/ANY
+    a_rcode = rng.choice([0, 3], n_anomalies).astype(np.int32)
+    a_frame_len = (120 + 4 * np.char.str_len(a_qname.astype(str))).astype(np.int32)
+
+    def col(bg, an):
+        return np.concatenate([bg, an])
+
+    table = pd.DataFrame({
+        "frame_time": _times(date, col(hour, a_hour)),
+        "frame_len": col(frame_len, a_frame_len),
+        "ip_dst": col(hosts[h_idx], hosts[rng.integers(0, n_hosts, n_anomalies)]),
+        "dns_qry_name": col(qname, a_qname),
+        "dns_qry_type": col(qtype, a_qtype),
+        "dns_qry_rcode": col(rcode, a_rcode),
+    })
+    return _shuffle(table, n_bg, n_events, rng)
+
+
+def _dga_names(rng: np.random.Generator, n: int) -> np.ndarray:
+    """DGA/tunnel-shaped names: long high-entropy random labels under
+    junk TLDs — each one its own campaign (heterogeneous in word space,
+    same rationale as the flow anomaly recipe)."""
+    alphabet = np.array(list("abcdefghijklmnopqrstuvwxyz0123456789"))
+    tlds = np.array(["biz", "info", "notld", "xy"], dtype=object)
+    lens = rng.integers(18, 40, n)
+    return np.array(
+        ["".join(rng.choice(alphabet, m)) + "." + tlds[rng.integers(0, 4)]
+         for m in lens], dtype=object)
+
+
+# ---------------------------------------------------------------------------
+# proxy
+# ---------------------------------------------------------------------------
+
+# (site pool, path pool, content type, method dist, peak_hour)
+_PROXY_PROFILES = [
+    (["www.google.com", "www.bing.com"],
+     ["/search?q=news", "/search?q=weather", "/"], "text/html", 13.0),
+    (["cdn.jsdelivr.net", "static.cloudflare.com"],
+     ["/js/app.min.js", "/css/site.css", "/fonts/r.woff2"],
+     "application/javascript", 12.0),
+    (["update.microsoft.com", "dl.delivery.mp.microsoft.com"],
+     ["/update/v11/cab", "/filestream/x"],
+     "application/octet-stream", 4.0),
+    (["www.youtube.com", "i.ytimg.com"],
+     ["/watch?v=abc123", "/vi/xyz/hq.jpg"], "video/mp4", 19.0),
+    (["mail.office365.com", "outlook.office.com"],
+     ["/owa/", "/api/v2/messages"], "application/json", 10.0),
+]
+
+_AGENTS = np.array([
+    "Mozilla/5.0 (Windows NT 10.0; Win64; x64)",
+    "Mozilla/5.0 (Macintosh; Intel Mac OS X 10_15)",
+    "Mozilla/5.0 (X11; Linux x86_64)"])
+
+
+_JUNK_ALPHA = np.array(list("abcdefghijklmnopqrstuvwxyz0123456789%2F"))
+
+
+def _proxy_campaigns(rng: np.random.Generator, n_anomalies: int):
+    """Shared anomaly-campaign recipe for BOTH proxy generators (row
+    and columnar): the campaign count scales with the anomaly count
+    (one per ~8 anomalies, min 5) and each campaign draws its own
+    URI-length range and hour window. A fixed handful of campaigns
+    collapses 10³ anomalies onto ~tens of word keys whose counts let
+    the sampler give the attack its own topic — the events then stop
+    being low-probability (measured at 10⁸ rows: 396/1000 recovered
+    with 5 fixed campaigns vs 840+/1000 heterogeneous)."""
+    n_camps = max(5, n_anomalies // 8)
+    camp = rng.integers(0, n_camps, n_anomalies)
+    camp_lo = rng.integers(25, 260, n_camps)
+    camp_hi = camp_lo + rng.integers(10, 140, n_camps)
+    camp_hour = rng.uniform(0, 22.4, n_camps).astype(np.float32)
+    return camp, camp_lo, camp_hi, camp_hour
+
+
+def _junk_uris(rng: np.random.Generator, camp: np.ndarray,
+               camp_lo: np.ndarray, camp_hi: np.ndarray) -> np.ndarray:
+    return np.array(
+        ["/" + "".join(rng.choice(_JUNK_ALPHA,
+                                  rng.integers(camp_lo[c], camp_hi[c])))
+         for c in camp], dtype=object)
+
+
+def synth_proxy_day(n_events: int = 20000, n_hosts: int = 120,
+                    n_anomalies: int = 30, date: str = DEMO_DATE,
+                    seed: int = 0) -> tuple[pd.DataFrame, np.ndarray]:
+    """One day of proxy logs (Bluecoat-style columns, SURVEY.md §2.1 #1).
+
+    Anomalies: beaconing to raw-IP hosts, long high-entropy URIs, rare
+    agents, octet-stream POSTs at night."""
+    rng = np.random.default_rng(seed)
+    hosts = _ips(n_hosts)
+    n_prof = len(_PROXY_PROFILES)
+    mix = _host_mixture(rng, n_hosts, n_prof)
+
+    n_bg = n_events - n_anomalies
+    h_idx = rng.integers(0, n_hosts, n_bg)
+    u = rng.random(n_bg)
+    prof = np.clip((mix[h_idx].cumsum(axis=1) < u[:, None]).sum(axis=1),
+                   0, n_prof - 1)
+
+    site, path, ctype, hour = [], [], [], []
+    for p in prof:
+        sites, paths, ct, mu = _PROXY_PROFILES[p]
+        site.append(sites[rng.integers(0, len(sites))])
+        path.append(paths[rng.integers(0, len(paths))])
+        ctype.append(ct)
+        hour.append(np.clip(rng.normal(mu, 2.5), 0, 23.99))
+    site = np.array(site, dtype=object)
+    path = np.array(path, dtype=object)
+    ctype = np.array(ctype, dtype=object)
+    hour = np.array(hour)
+    method = rng.choice(np.array(["GET", "POST"]), n_bg, p=[.92, .08])
+    respcode = rng.choice([200, 304, 404], n_bg, p=[.85, .1, .05])
+    agent = _AGENTS[rng.integers(0, len(_AGENTS), n_bg)]
+    csbytes = np.exp(rng.normal(6, 1, n_bg)).astype(np.int64)
+
+    # Anomalies come from distinct small "campaigns" (different tools,
+    # URI styles, hours) so they are heterogeneous in word space — a
+    # single repeated signature would form its own topic and stop being
+    # rare to the model (the same reason the reference needs DUPFACTOR
+    # to deliberately un-rare analyst-cleared patterns). ONE recipe
+    # shared with synth_proxy_day_arrays so the fidelity studies and
+    # the 10⁸-row scale runs plant the same anomaly distribution.
+    camp, camp_lo, camp_hi, camp_hour = _proxy_campaigns(rng, n_anomalies)
+    a_paths = _junk_uris(rng, camp, camp_lo, camp_hi)
+    a_sites = np.array([f"198.51.{rng.integers(0, 100)}.{rng.integers(1, 255)}"
+                        for _ in range(n_anomalies)], dtype=object)
+    a_hour = np.clip(camp_hour[camp] + rng.uniform(0, 1.5, n_anomalies),
+                     0, 23.99)
+    a_agents = np.array([f"tool{c}/{rng.integers(1, 9)}.{rng.integers(0, 9)}"
+                         for c in camp], dtype=object)
+    a_cs = np.exp(rng.normal(10, 1, n_anomalies)).astype(np.int64)
+
+    def col(bg, an):
+        return np.concatenate([bg, an])
+
+    hours_all = col(hour, a_hour)
+    table = pd.DataFrame({
+        "p_date": np.full(n_events, date),
+        "p_time": [t.split(" ")[1] for t in _times(date, hours_all)],
+        "clientip": col(hosts[h_idx], hosts[rng.integers(0, n_hosts, n_anomalies)]),
+        "host": col(site, a_sites),
+        "reqmethod": col(method, np.full(n_anomalies, "POST", dtype=object)),
+        "useragent": col(agent, a_agents),
+        "resconttype": col(ctype, np.full(n_anomalies,
+                                          "application/octet-stream",
+                                          dtype=object)),
+        "respcode": col(respcode, rng.choice([200, 503], n_anomalies)).astype(np.int32),
+        "uripath": col(path, a_paths),
+        "csbytes": col(csbytes, a_cs),
+        "scbytes": np.exp(rng.normal(7, 1, n_events)).astype(np.int64),
+    })
+    return _shuffle(table, n_bg, n_events, rng)
+
+
+SYNTH = {"flow": synth_flow_day, "dns": synth_dns_day, "proxy": synth_proxy_day}

@@ -247,8 +247,7 @@ def test_fit_callback_sees_every_sweep(corpus):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("n_chains", 2), ("checkpoint_every", 5), ("sampler_form", "sparse"),
-    ("nwk_form", "pallas"), ("nwk_form", "scatter"),
+    ("checkpoint_every", 5), ("sampler_form", "sparse"),
 ])
 def test_settings_outside_the_slice_raise(field, value):
     cfg = LDAConfig(**{field: value})

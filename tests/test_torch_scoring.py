@@ -159,8 +159,17 @@ def test_bottom_k_order_and_padding_match_reference(n, max_results):
                                   np.asarray(ref.scores))
 
 
-def test_multi_chain_tables_are_not_ported(fitted):
+def test_multi_chain_tables_match_reference(fitted):
+    # A [C, D, K] stack of two chains scores by the geometric mean over
+    # chains, as the reference's, to the 48-ulp bound that
+    # tests/test_torch_chains.py derives.
     corpus, _, theta, phi = fitted
-    with pytest.raises(NotImplementedError, match="chains"):
-        ts.score_all(theta[None], phi[None], corpus.doc_ids,
-                     corpus.word_ids, device="cpu")
+    chains_t = np.stack([theta, theta ** 1.01 / (theta ** 1.01).sum(
+        -1, keepdims=True)])
+    chains_p = np.stack([phi, phi])
+    port = ts.score_all(chains_t, chains_p, corpus.doc_ids,
+                        corpus.word_ids, device="cpu")
+    ref = np.asarray(js.score_all(chains_t, chains_p, corpus.doc_ids,
+                                  corpus.word_ids))
+    bad = np.abs(port - ref) > 48 * 2.0 ** -23 * np.abs(ref)
+    assert not bad.any(), np.flatnonzero(bad)[:5]
