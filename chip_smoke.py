@@ -56,6 +56,20 @@ non-zero and prints no result line):
              overlap against the C++ oracle >= 0.95 and >= the
              oracle's own ceiling less 0.02. The oracle is built with
              make from native/lda_ref and runs on the host's cores.
+8. resilience and scale — the phase-5 day in another store root under
+             `-s lda.checkpoint_every=10 --fault-plan
+             fit:sweep@25=preempt,ckpt:save@3=torn`: the run must be
+             preempted after sweep 29 with a torn sweep-29 checkpoint on
+             disk (930 K1 launches); the rerun without the plan resumes
+             from sweep 19 (1,240 launches) and its results CSV, clients
+             CSV and saved theta/phi equal phase 5's, its manifest
+             counting the two faults; the walls of a save and of the
+             resume load. Then a flow day of 2,000,000 events written as
+             4 parts: `score` at the default config reads it column by
+             column ("auto"), and again with `-s pipeline.columnar=off`;
+             equal CSVs and corpus counts, 60 x ceil(N / 65,536) K1
+             launches each, the read, word and corpus walls and the
+             process's peak RSS of each run.
 
 The last lines of standard output are the card's name and power limit,
 a `{"kernels": [...]}` line, and `{"ok": true, "device": {...}}`.
@@ -1625,6 +1639,220 @@ def phase_overlap(card: str) -> dict:
     return out
 
 
+# -- phase 8 ----------------------------------------------------------------
+
+# The drill on the phase-5 day (60 sweeps, superstep 10): checkpoints
+# at sweeps 9, 19 and 29, the third save torn; the preemption fires at
+# the first boundary at or after sweep 25, which is 29. The rerun
+# resumes from 19.
+DRILL_PLAN = "fit:sweep@25=preempt,ckpt:save@3=torn"
+DRILL_EVERY, DRILL_STOP, DRILL_RESUME = 10, 29, 19
+# The columnar day: the auto threshold (COLUMNAR_AUTO_MIN_ROWS) in 4
+# parts of one Store.append each.
+COLUMNAR_EVENTS, COLUMNAR_PARTS = 2_000_000, 4
+
+
+def day_outputs(results_dir: pathlib.Path) -> dict:
+    """What a `score` run of the flow day left under `results_dir`: the
+    bytes of its results and clients CSVs, its manifest, run log records
+    and, when it saved one, its model's theta/phi."""
+    import numpy as np
+    out = results_dir / "20160708"
+    man = json.loads((out / "flow_results.manifest.json").read_text())
+    got = {"results": (out / "flow_results.csv").read_bytes(),
+           "clients": (out / "flow_results_clients.csv").read_bytes(),
+           "manifest": man,
+           "runlog": [json.loads(line) for line in
+                      (out / "flow_results.runlog.jsonl").read_text()
+                      .splitlines()]}
+    if "model_saved" in man:
+        with np.load(man["model_saved"]) as z:
+            got["theta"], got["phi_wk"] = z["theta"], z["phi_wk"]
+    return got
+
+
+def rss_gib() -> float:
+    """This process's resident size, GiB (/proc/self/statm)."""
+    import os
+    pages = int(pathlib.Path("/proc/self/statm").read_text().split()[1])
+    return pages * os.sysconf("SC_PAGE_SIZE") / 2 ** 30
+
+
+class PeakRss:
+    """The peak resident size of this process while the block runs,
+    sampled every 5 ms by a thread: the card's host reports no VmHWM,
+    and a high-water mark would hold the earlier phases' peak too."""
+
+    def __enter__(self):
+        import threading
+        self.before = self.peak = rss_gib()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self) -> None:
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, rss_gib())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.peak = max(self.peak, rss_gib())
+        return False
+
+
+def phase_resilience(card: str, root: pathlib.Path, table,
+                     clean: dict) -> None:
+    """The preemption drill on the phase-5 day (`clean` is what phase 5
+    left) and the columnar day; see the module docstring."""
+    import numpy as np
+    import torch
+
+    from onix_torch import cli
+    from onix_torch.checkpoint import SimulatedPreemption
+    from onix_torch.models import sample_count
+    from onix_torch.pipelines.synth import synth_flow_day
+    from onix_torch.store import Store
+    from onix_torch.utils import faults
+    from onix_torch.utils.obs import counters
+    date = "2016-07-08"
+    n_tok = clean["manifest"]["n_tokens"]
+    n_blocks = math.ceil(n_tok / 65_536)
+    drill = root / "drill"
+    Store(drill).write("flow", date, table)
+    for prefix in ("salvage", "faults", "ckpt"):
+        counters.reset(prefix)
+    args = ["score", date, "flow", "-s", f"store.root={drill}",
+            "-s", "serving.save_fitted=true", "-s", "lda.n_chains=1",
+            "-s", f"lda.checkpoint_every={DRILL_EVERY}"]
+    torch.cuda.synchronize()
+    sample_count.launches = 0
+    t0 = time.perf_counter()
+    try:
+        cli.main(args + ["--fault-plan", DRILL_PLAN])
+    except SimulatedPreemption as e:
+        preempted = str(e)
+    else:
+        raise AssertionError("the drill's run was not preempted")
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    launches1 = sample_count.launches
+    if launches1 != (DRILL_STOP + 1) * n_blocks:
+        raise AssertionError(f"drill: K1 launched {launches1} times before "
+                             f"the preemption, want {DRILL_STOP + 1} x "
+                             f"{n_blocks}")
+    (fp_dir,) = (drill / "checkpoints" / "flow" / "20160708").iterdir()
+    on_disk = sorted(p.name for p in fp_dir.glob("ckpt-*"))
+    torn = f"ckpt-{DRILL_STOP:06d}"
+    if f"{torn}.npz" not in on_disk or f"{torn}.json" in on_disk:
+        raise AssertionError(f"drill: no torn sweep-{DRILL_STOP} pair: "
+                             f"{on_disk}")
+    say(card, f"drill: preempted ({preempted}) after {wall1:.2f} s, K1 "
+              f"launches {launches1}; on disk {on_disk}")
+    faults.reset()
+    torch.cuda.synchronize()
+    sample_count.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(args)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    launches2 = sample_count.launches
+    if rc != 0:
+        raise AssertionError(f"drill: the rerun exited {rc}")
+    got = day_outputs(drill / "results")
+    man = got["manifest"]
+    want2 = (60 - DRILL_RESUME - 1) * n_blocks
+    if launches2 != want2 or man["kernel_launches"]["sample_count"] != want2:
+        raise AssertionError(f"drill: the rerun launched K1 {launches2} "
+                             f"times, want {want2}")
+    ck = man["checkpoint"]
+    if ck["resumed_from"] != DRILL_RESUME \
+            or man["ll_history"][0][0] != DRILL_RESUME:
+        raise AssertionError(f"drill: resumed from {ck['resumed_from']}, "
+                             f"want {DRILL_RESUME}")
+    for key in ("results", "clients"):
+        if got[key] != clean[key]:
+            raise AssertionError(f"drill: the {key} CSV differs from the "
+                                 "uninterrupted day's")
+    for key in ("theta", "phi_wk"):
+        if not np.array_equal(got[key], clean[key]):
+            raise AssertionError(f"drill: the saved {key} differs from the "
+                                 "uninterrupted day's")
+    if man.get("resilience") != {"faults.ckpt.save": 1,
+                                 "faults.fit.sweep": 1}:
+        raise AssertionError(f"drill: resilience {man.get('resilience')}")
+    saves = ck["save_s"]
+    say(card, f"drill: rerun {wall2:.2f} s, K1 launches {launches2}, "
+              f"resumed from sweep {ck['resumed_from']}; results, clients "
+              f"and theta/phi equal phase 5's; resilience "
+              f"{man['resilience']}")
+    say(card, f"drill: checkpoint load (resume) {ck['load_s']:.6f} s; "
+              f"{len(saves)} saves {[round(x, 6) for x in saves]} s, median "
+              f"{statistics.median(saves):.6f} s; one checkpoint's npz "
+              f"{max(p.stat().st_size for p in fp_dir.glob('*.npz')) / 2 ** 20:.2f}"
+              " MiB")
+
+    # The columnar day.
+    col = root / "columnar"
+    t0 = time.perf_counter()
+    big, _ = synth_flow_day(COLUMNAR_EVENTS, n_hosts=2 * DAY_HOSTS,
+                            n_anomalies=2 * DAY_ANOMALIES, seed=1)
+    step = COLUMNAR_EVENTS // COLUMNAR_PARTS
+    for i in range(COLUMNAR_PARTS):
+        Store(col).append("flow", date, big.iloc[i * step:(i + 1) * step])
+    del big
+    say(card, f"columnar: a day of {COLUMNAR_EVENTS} events in "
+              f"{COLUMNAR_PARTS} parts written in "
+              f"{time.perf_counter() - t0:.2f} s")
+    runs = {}
+    for mode in ("auto", "off"):
+        torch.cuda.synchronize()
+        sample_count.launches = 0
+        t0 = time.perf_counter()
+        with PeakRss() as rss:
+            rc = cli.main(["score", date, "flow", "-s", f"store.root={col}",
+                           "-s", f"store.results_dir={col}/results-{mode}",
+                           "-s", f"pipeline.columnar={mode}"])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"columnar: the {mode} run exited {rc}")
+        got = day_outputs(col / f"results-{mode}")
+        runs[mode] = got
+        man = got["manifest"]
+        modes = [r["columnar"] for r in got["runlog"]
+                 if r["event"] == "read_mode"]
+        if modes != [mode == "auto"]:
+            raise AssertionError(f"columnar: {mode} run read_mode {modes}")
+        want = 60 * math.ceil(man["n_tokens"] / 65_536)
+        if sample_count.launches != want \
+                or man["kernel_launches"]["sample_count"] != want:
+            raise AssertionError(
+                f"columnar: the {mode} run launched K1 "
+                f"{sample_count.launches} times, want {want}")
+        stages = {r["stage"]: r["wall_s"] for r in got["runlog"]
+                  if r["event"] == "stage_end"}
+        say(card, f"columnar: {mode} (read_mode columnar={modes[0]}): wall "
+                  f"{wall:.2f} s; read {stages['read']} s, word_creation "
+                  f"{stages['word_creation']} s, corpus_build "
+                  f"{stages['corpus_build']} s, lda_fit {stages['lda_fit']} "
+                  f"s; K1 launches {want}; peak RSS {rss.peak:.3f} GiB "
+                  f"during the run ({rss.before:.3f} GiB resident before "
+                  f"it, sampled every 5 ms)")
+    a, b = runs["auto"], runs["off"]
+    for key in ("results", "clients"):
+        if a[key] != b[key]:
+            raise AssertionError(f"columnar: the {key} CSVs differ")
+    for key in ("n_events", "n_docs", "n_vocab", "n_tokens", "n_results"):
+        if a["manifest"][key] != b["manifest"][key]:
+            raise AssertionError(f"columnar: {key} differs")
+    m = a["manifest"]
+    say(card, f"columnar: equal CSVs; n_events {m['n_events']}, D "
+              f"{m['n_docs']}, V {m['n_vocab']}, N {m['n_tokens']}, "
+              f"{m['n_results']} results")
+
+
 def main() -> int:
     try:
         import torch
@@ -1654,15 +1882,19 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="onix_torch_smoke_") as tmp:
         root = pathlib.Path(tmp)
         launches, table, recall = phase_slice(card, root / "day")
+        clean = day_outputs(root / "day" / "results")
         launches.update(phase_serve(card, root / "day", table))
         chain_launches, _, chain_recall = phase_slice(card, root / "chains",
                                                       chains=8)
-    say(card, f"slice: recall at 8 chains {chain_recall:.4f}, at one "
-              f"chain {recall:.4f}")
-    rows["sample_count"]["chains"]["launches"] = \
-        chain_launches["sample_count"]
-    say(card, f"phases 1-6 passed in {time.perf_counter() - t0:.1f} s")
-    phase_overlap(card)
+        say(card, f"slice: recall at 8 chains {chain_recall:.4f}, at one "
+                  f"chain {recall:.4f}")
+        rows["sample_count"]["chains"]["launches"] = \
+            chain_launches["sample_count"]
+        say(card, f"phases 1-6 passed in {time.perf_counter() - t0:.1f} s")
+        phase_overlap(card)
+        t8 = time.perf_counter()
+        phase_resilience(card, root, table, clean)
+        say(card, f"phase 8 passed in {time.perf_counter() - t8:.1f} s")
     for name, row in rows.items():
         row["launches"] = launches[name]
     say(card, f"all phases passed in {time.perf_counter() - t0:.1f} s")

@@ -1,11 +1,25 @@
-"""Fitted-model persistence for the serving bank — a copy of the model
-store of `onix/checkpoint.py`: `save_model`, `load_model`,
-`load_models`, `model_meta_epoch`, `list_models`, `model_path`,
-`model_content_digest` and `ModelIntegrityError`, with the
-`Checkpoint` record they return and `SimulatedPreemption`. Numpy and
-json only: a model either package saves, the other loads. The sampler
-checkpoints (resume on preemption) are still to come (ROADMAP.md
-queue 1, item 6).
+"""Checkpoints — a copy of `onix/checkpoint.py` without its multi-host
+shard layout (slice 5).
+
+Two halves, numpy and json only:
+
+- **Sampler state, for resume on preemption**: `save`, `load_latest`
+  and the run identity `fingerprint` (with `_SAMPLING_FIELDS`,
+  `FINGERPRINT_FIELDS`, `FINGERPRINT_EXEMPT`). One npz of arrays and
+  one json of metadata a checkpoint, written atomically (npz, then the
+  json that names its sha256, `ckpt_format: 2`), the newest `keep`
+  kept. `load_latest` falls back past a torn pair or a digest mismatch
+  (counted under `ckpt.digest_mismatch`, with a flight-recorder dump).
+  The fit's checkpoints sit in a subdirectory named by the fingerprint;
+  the port's fit adds its generator to it (`lda_gibbs.GibbsLDA.fit`),
+  so neither package adopts the other's sampler state.
+- **Fitted models for the serving bank**: `save_model`, `load_model`,
+  `load_models`, `model_meta_epoch`, `list_models`, `model_path`,
+  `model_content_digest` and `ModelIntegrityError`. A model either
+  package saves, the other loads.
+
+`Checkpoint` is the record both halves return; `SimulatedPreemption`
+is what the fault hooks raise.
 """
 
 from __future__ import annotations
@@ -32,6 +46,96 @@ class Checkpoint:
     @property
     def sweep(self) -> int:
         return int(self.meta["sweep"])
+
+
+def _paths(ckpt_dir: pathlib.Path, sweep: int) -> tuple[pathlib.Path, pathlib.Path]:
+    stem = f"ckpt-{sweep:06d}"
+    return ckpt_dir / f"{stem}.npz", ckpt_dir / f"{stem}.json"
+
+
+def save(ckpt_dir: str | pathlib.Path, sweep: int,
+         arrays: dict[str, np.ndarray], meta: dict, keep: int = 2) -> None:
+    """Atomically persist one checkpoint; prune to the newest `keep`.
+
+    The .json is written (renamed into place) only after the .npz is
+    durable, so a crash mid-save can never leave a checkpoint that
+    `load_latest` would trust. The json carries the npz's sha256, which
+    load_latest verifies — a checkpoint that rotted on disk after a
+    clean save is refused, not resumed from.
+
+    Chaos hook: a `ckpt:save=torn` rule in the active fault plan makes
+    this save stop after the npz rename (the mid-crash torn state),
+    exactly once."""
+    from onix_torch.utils import faults
+
+    ckpt_dir = pathlib.Path(ckpt_dir)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    npz_path, json_path = _paths(ckpt_dir, sweep)
+
+    tmp = npz_path.with_suffix(".npz.tmp")
+    with open(tmp, "wb") as f:
+        np.savez(f, **{k: np.asarray(v) for k, v in arrays.items()})
+    h = hashlib.sha256()
+    with open(tmp, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 22), b""):
+            h.update(chunk)
+    meta = dict(meta, sweep=int(sweep), npz_sha256=h.hexdigest(),
+                ckpt_format=2)
+    tmp.replace(npz_path)
+    if faults.fire("ckpt", "save") == "torn":
+        return      # simulated crash between the npz and json renames
+    tmp_j = json_path.with_suffix(".json.tmp")
+    tmp_j.write_text(json.dumps(meta, indent=2))
+    tmp_j.replace(json_path)
+
+    done = sorted(ckpt_dir.glob("ckpt-*.json"))
+    for old in done[:-keep] if keep > 0 else []:
+        old.with_suffix(".npz").unlink(missing_ok=True)
+        old.unlink(missing_ok=True)
+
+
+def load_latest(ckpt_dir: str | pathlib.Path) -> Checkpoint | None:
+    """Newest complete AND intact checkpoint, or None. Incomplete pairs
+    (crash between npz and json rename), unreadable npzs, and digest
+    mismatches (bit rot, short write) all fall back to the next-older
+    checkpoint — never a resume from corrupt state."""
+    import logging
+
+    from onix_torch.utils.obs import counters
+
+    ckpt_dir = pathlib.Path(ckpt_dir)
+    if not ckpt_dir.exists():
+        return None
+    for json_path in sorted(ckpt_dir.glob("ckpt-*.json"), reverse=True):
+        npz_path = json_path.with_suffix(".npz")
+        if not npz_path.exists():
+            continue
+        try:
+            meta = json.loads(json_path.read_text())
+            want = meta.get("npz_sha256")
+            if want is not None:
+                # Chunked hash: a multi-GB sampler state must not be
+                # double-buffered just to verify it.
+                h = hashlib.sha256()
+                with open(npz_path, "rb") as f:
+                    for chunk in iter(lambda: f.read(1 << 22), b""):
+                        h.update(chunk)
+                if h.hexdigest() != want:
+                    counters.inc("ckpt.digest_mismatch")
+                    from onix_torch.utils import telemetry
+                    telemetry.RECORDER.dump(
+                        "ckpt-digest-mismatch",
+                        extra={"path": str(npz_path)})
+                    logging.getLogger("onix.checkpoint").warning(
+                        "checkpoint %s fails its sha256 digest — skipping "
+                        "to the previous checkpoint", npz_path)
+                    continue
+            with np.load(npz_path) as z:
+                arrays = {k: z[k] for k in z.files}
+        except (json.JSONDecodeError, OSError, ValueError):
+            continue        # torn file: fall back to an older checkpoint
+        return Checkpoint(arrays=arrays, meta=meta)
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -219,3 +323,92 @@ def list_models(models_dir: str | pathlib.Path) -> list[str]:
         if p.with_suffix(".json").exists():
             out.append(str(p.relative_to(root))[:-len(".npz")])
     return sorted(out)
+
+
+# The LDAConfig fields that actually change what a Gibbs sweep computes.
+# Deliberately NOT the whole config: raising n_sweeps to extend a run, or
+# tweaking checkpoint_every / svi_* knobs the sampler never reads, must
+# not discard resumable progress.
+_SAMPLING_FIELDS = ("n_topics", "alpha", "eta", "burn_in", "block_size",
+                    "seed", "n_chains", "sync_splits")
+
+#: The fingerprint CONTRACT, machine-checked by `python -m
+#: onix.analysis` (the `fingerprints` pass): every LDAConfig field the
+#: engine modules read must appear here (value = where it joins a
+#: checkpoint fingerprint) or in FINGERPRINT_EXEMPT (value = why it is
+#: safe outside one). A new semantics-changing knob that reaches an
+#: engine without joining either table is a lint finding — the next
+#: `merge_staleness`-class knob cannot ship without resume refusal
+#: (the r11/r14 contract; resume-refusal behavior itself is covered by
+#: tests/test_sparse_gibbs.py, test_merge_async.py, test_scvb0.py).
+FINGERPRINT_FIELDS: dict[str, str] = {
+    "n_topics": "_SAMPLING_FIELDS (every fingerprint)",
+    "alpha": "_SAMPLING_FIELDS (every fingerprint)",
+    "eta": "_SAMPLING_FIELDS (every fingerprint)",
+    "burn_in": "_SAMPLING_FIELDS (every fingerprint)",
+    "block_size": "_SAMPLING_FIELDS (every fingerprint)",
+    "seed": "_SAMPLING_FIELDS (every fingerprint)",
+    "n_chains": "_SAMPLING_FIELDS (every fingerprint)",
+    "sync_splits": "_SAMPLING_FIELDS (every fingerprint)",
+    "superstep": "fingerprint(superstep=...) — the RESOLVED fused size",
+    "sampler_form": "lda_gibbs.sampler_fingerprint (sparse arm only)",
+    "sparse_active": "lda_gibbs.sampler_fingerprint (sparse arm only)",
+    "sparse_mh": "lda_gibbs.sampler_fingerprint (sparse arm only)",
+    "merge_form": "lda_gibbs.merge_fingerprint (async arm only)",
+    "merge_staleness": "lda_gibbs.merge_fingerprint (async arm only)",
+    "svi_tau0": "streaming _fingerprint svi list (layout 5)",
+    "svi_kappa": "streaming _fingerprint svi list (layout 5)",
+    "svi_local_iters": "streaming _fingerprint svi list (layout 5)",
+    "svi_meanchange_tol": "streaming _fingerprint svi list (layout 5)",
+    "svi_warm_iters": "streaming _fingerprint svi list (EFFECTIVE value)",
+    "stream_estep": "streaming _fingerprint svi list (layout 5)",
+}
+
+#: Fields engines may read WITHOUT fingerprinting, each with the reason
+#: it cannot silently change a resumed chain. Reviewed additions only.
+FINGERPRINT_EXEMPT: dict[str, str] = {
+    "n_sweeps": "run EXTENT, not chain semantics — extending a "
+                "preempted run is the whole point of resume",
+    "checkpoint_every": "save cadence: segments also break here, but "
+                        "ll entries land denser-never-sparser and the "
+                        "async τ>0 segmentation-dependence is the "
+                        "documented in-band contract (ROBUSTNESS.md)",
+    "nwk_form": "all three count-update forms are bit-identical "
+                "(tested) — pure performance, documented as NOT part "
+                "of the fingerprint in config.py",
+    "svi_batch_size": "batch SVI minibatch slicing; the batch engine "
+                      "has no checkpoint/resume path and the streaming "
+                      "scorer's minibatches are the file feed",
+    "svi_max_epochs": "batch SVI epoch cap — run extent, like n_sweeps",
+    "svi_epoch_tol": "batch SVI early-stop — run extent, like n_sweeps",
+}
+
+
+def fingerprint(config, n_docs: int, n_vocab: int, n_tokens: int,
+                extra: dict | None = None,
+                superstep: int | None = None) -> str:
+    """Identity of a resumable run: sampling-relevant hyperparams +
+    corpus shape. A checkpoint from a different config/corpus must never
+    be resumed into — shape-compatible mismatches (same D,V, different
+    seed) are caught here; checkpoints live in a per-fingerprint subdir
+    so runs with different identities never interfere.
+
+    `superstep` is the RESOLVED fused-superstep size of the writing
+    engine (not the raw config field, whose 0 means "auto"): the fused
+    carry holds accumulator state and checkpoints land only at superstep
+    boundaries, so resuming a run under a different S is refused here
+    rather than producing a subtly different ll cadence/artifact. The
+    parameter joining the payload is itself a layout bump — every
+    pre-superstep checkpoint is refused, never misread."""
+    full = dataclasses.asdict(config)
+    payload = {
+        "lda": {k: full[k] for k in _SAMPLING_FIELDS},
+        "n_docs": int(n_docs), "n_vocab": int(n_vocab),
+        "n_tokens": int(n_tokens),
+        **(extra or {}),
+    }
+    if superstep is not None:
+        payload["superstep"] = int(superstep)
+    import hashlib
+    return hashlib.sha256(
+        json.dumps(payload, sort_keys=True).encode()).hexdigest()[:16]

@@ -1,8 +1,8 @@
 """Command line of the PyTorch port.
 
     python -m onix_torch.cli score <date> <flow|dns|proxy> [--tol T]
-        [--max-results N] [-c CONFIG] [-s KEY.PATH=VALUE ...]
-        [--device cuda|cpu]
+        [--max-results N] [--fault-inject SWEEP] [--fault-plan PLAN]
+        [-c CONFIG] [-s KEY.PATH=VALUE ...] [--device cuda|cpu]
     python -m onix_torch.cli serve [--port P] [--host H]
         [--models-dir DIR] [--bank-capacity C] [-c CONFIG]
         [-s KEY.PATH=VALUE ...] [--device cuda|cpu]
@@ -11,17 +11,20 @@ The `onix score` and `onix serve` subcommands of `onix/cli.py` on the
 port. `score -s serving.save_fitted=true` persists the day's model
 under serving.models_dir; `serve` answers `POST /score` from a model
 bank on the device (`onix_torch/oa/serve.py`). The device defaults to
-the card; `--device cpu` runs on the CPU. The reference's
-`--engine svi|sharded`, `--fault-inject` and `--fault-plan` are
-accepted and raise NotImplementedError until their slices are ported.
+the card; `--device cpu` runs on the CPU. `--fault-inject N`
+preempts the Gibbs fit after sweep N (ONIX_FAULT_SWEEP), and
+`--fault-plan` installs a chaos plan (`utils/faults.py`); with `-s
+lda.checkpoint_every=E` a rerun resumes from the last checkpoint. The
+reference's `--engine svi|sharded` are accepted and raise
+NotImplementedError until their slices are ported.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
-from onix_torch import not_ported
 from onix_torch.config import load_config
 
 
@@ -73,6 +76,11 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     cfg = load_config(args.config, args.overrides)
+    # Route the telemetry layer (enablement, sampling, the flight
+    # recorder's dump dir) from the resolved config for every command,
+    # so a drill's flight record lands under <store.root>/telemetry.
+    from onix_torch.utils import telemetry
+    telemetry.apply_config(cfg.telemetry)
     if args.command == "serve":
         if args.models_dir is not None:
             cfg.serving.models_dir = args.models_dir
@@ -82,9 +90,6 @@ def main(argv: list[str] | None = None) -> int:
         from onix_torch.oa.serve import run_serve
         return run_serve(cfg, port=args.port, host=args.host,
                          device=args.device)
-    if args.fault_inject is not None or args.fault_plan is not None:
-        raise not_ported("--fault-inject / --fault-plan",
-                         "slice 1, item 'fault injection'")
     cfg.pipeline.date = args.date
     cfg.pipeline.datatype = args.datatype
     if args.tol is not None:
@@ -92,6 +97,15 @@ def main(argv: list[str] | None = None) -> int:
     if args.max_results is not None:
         cfg.pipeline.max_results = args.max_results
     cfg.validate()          # re-check: flags bypass load_config's pass
+    if args.fault_inject is not None:
+        if args.engine != "gibbs":
+            raise SystemExit(
+                "--fault-inject is only wired to the gibbs engine; "
+                f"a {args.engine} drill would silently do nothing")
+        os.environ["ONIX_FAULT_SWEEP"] = str(args.fault_inject)
+    if args.fault_plan is not None:
+        from onix_torch.utils import faults
+        faults.install_plan(args.fault_plan)    # parse errors exit now
     from onix_torch.pipelines.run import run_scoring
     return run_scoring(cfg, engine=args.engine, device=args.device)
 

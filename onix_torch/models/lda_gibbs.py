@@ -33,21 +33,30 @@ Random numbers come from a noise source (`TorchNoise` by default: a
 `GibbsLDA.fit` takes, so the tests can hand in a replay of the
 reference's JAX key stream and compare the two fits draw for draw. A
 source for C chains gives the init's topics for the whole [C, n_blocks,
-B] state and one [C, B, K] draw a block.
+B] state and one [C, B, K] draw a block. Its `get_state`/`set_state`
+carry the stream across a checkpoint: the fit saves the state tensors,
+n_acc and the source's state (`rng_state`), and a resumed fit restores
+them and skips the init, so it continues the same chain.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import pathlib
+import time
 
 import numpy as np
 import torch
 
+from onix_torch import checkpoint as ckpt
 from onix_torch import not_ported
-from onix_torch.config import LDAConfig
+from onix_torch.config import LDAConfig, resolve_form_gate
 from onix_torch.corpus import Corpus
 from onix_torch.device import resolve_device
+from onix_torch.models.compaction import pow2_bucket
 from onix_torch.models.sample_count import gibbs_block_step_
+from onix_torch.utils import faults
 
 # Auto superstep size (config.lda.superstep == 0): the reference's
 # SUPERSTEP_DEFAULT, which sets the ll_history cadence.
@@ -60,21 +69,122 @@ SUPERSTEP_DEFAULT = 10
 NWK_MATMUL_MAX_BLOCK = 1 << 24
 
 
-def check_supported(config: LDAConfig) -> None:
-    """Raise NotImplementedError for the LDA settings the port does
-    not run yet.
+# The sampler-form gate — an own copy of the reference's
+# (`onix/models/lda_gibbs.py:305-421`), keyed on the fit's torch device
+# type instead of the JAX backend. Auto engages the sparse arm only
+# where a committed measurement says it wins:
+#   * cpu — K >= 64: the reference's measurement on a CPU host
+#     (docs/SPARSE_r11_cpu.json); the port resolves as the reference
+#     does there, so `--device cpu` at K >= 64 refuses (the sparse arm
+#     is slice 4) instead of quietly running a dense chain.
+#   * cuda — no entry: no card measurement exists, so auto stays dense.
+_SAMPLER_SPARSE_MIN_K: dict[str, float] = {"cpu": 64.0}
 
-    Every `lda.nwk_form` runs: the reference documents that its forms
-    ("scatter", "matmul", "pallas") give the same draws and counts
-    (`lda_gibbs.py:703-704`), and the port has one form for them all,
-    K1's in-place step on the card and `gibbs_block_step_plain` on the
-    CPU."""
-    if config.checkpoint_every > 0:
-        raise not_ported("lda.checkpoint_every > 0",
-                         "slice 1, item 'checkpoint resume'")
-    if config.sampler_form == "sparse":
-        raise not_ported("lda.sampler_form='sparse'",
-                         "slice 4 (sparse sampler)")
+
+def env_nwk_form() -> str | None:
+    """The ONIX_NWK_FORM experiment override; "auto" (and empty) mean
+    None. The port has one count-update form for every name, so this
+    only feeds the sampler gate's dense-pin deference."""
+    env = os.environ.get("ONIX_NWK_FORM")
+    if not env or env == "auto":
+        return None
+    return env
+
+
+def env_sampler_form() -> str | None:
+    """Resolve the ONIX_SAMPLER_FORM experiment override. "auto" (and
+    empty) mean None — defer to the measured gate — mirroring
+    env_nwk_form. Engines read this ONCE at construction: the resolved
+    form joins the checkpoint fingerprint, so the compiled sampler and
+    the resume identity can never disagree."""
+    env = os.environ.get("ONIX_SAMPLER_FORM")
+    if not env or env == "auto":
+        return None
+    return env
+
+
+def select_sampler_form(*, backend: str, k_topics: int,
+                        sampler_form: str | None = None) -> str:
+    """The sampler form ("dense" | "sparse"): explicit `sampler_form`,
+    then the measured per-device K crossover (_SAMPLER_SPARSE_MIN_K;
+    unmeasured devices keep dense), through the shared precedence chain
+    `config.resolve_form_gate`. An explicit "sparse" is honored at ANY
+    K."""
+    def measured() -> str | None:
+        min_k = _SAMPLER_SPARSE_MIN_K.get(backend)
+        if min_k is not None and k_topics >= min_k:
+            return "sparse"
+        return None
+
+    return resolve_form_gate(gate="sampler_form",
+                             choices=("dense", "sparse"),
+                             explicit=sampler_form, measured=measured,
+                             default="dense")
+
+
+def sampler_fingerprint(form: str, sparse_active: int,
+                        sparse_mh: int) -> dict:
+    """Checkpoint-identity entry for the RESOLVED sampler form. Dense
+    contributes NOTHING; the sparse arm adds the form plus its live
+    knobs (A and the MH cycle length change what the chain samples) —
+    which is also what refuses a resume across an arm change in either
+    direction."""
+    if form != "sparse":
+        return {}
+    return {"sampler": form,
+            "sparse": [int(sparse_active), int(sparse_mh)]}
+
+
+def merge_fingerprint(form: str, staleness: int) -> dict:
+    """Checkpoint-identity entry for the RESOLVED count-merge form.
+    Sync contributes NOTHING; the async arm adds the form plus its
+    staleness bound τ, which refuses a resume across a merge-form/τ
+    change in either direction."""
+    if form != "async":
+        return {}
+    return {"merge": [form, int(staleness)]}
+
+
+def _resolved_sampler_form(sampler_form: str | None, *, k_topics: int,
+                           pinned: bool, backend: str) -> str:
+    """The ONE deference chain behind every sampler-form decision —
+    explicit form, then ONIX_SAMPLER_FORM, then dense when an n_wk form
+    is pinned (argument or ONIX_NWK_FORM: the sparse arm has no n_wk
+    form, so auto stealing a pinned run would mislabel that
+    experiment), then the measured gate for `backend`, the fit's
+    device type."""
+    form = sampler_form
+    if form is None:
+        form = env_sampler_form()
+    if form is None and (pinned or env_nwk_form() is not None):
+        form = "dense"
+    return select_sampler_form(backend=backend, k_topics=k_topics,
+                               sampler_form=form)
+
+
+def resolve_sampler(config, *, k_topics: int, backend: str,
+                    nwk_form: str | None = None) -> tuple[str, int, dict]:
+    """The construction-time sampler resolution: config (explicit
+    lda.sampler_form beats all), then ONIX_SAMPLER_FORM, then — only
+    for the measured auto gate — deference to an explicit n_wk pin,
+    then _SAMPLER_SPARSE_MIN_K for `backend`. Returns (form,
+    resolved_active, the sampler's keyword arguments)."""
+    sform = (None if config.sampler_form == "auto"
+             else config.sampler_form)
+    form = _resolved_sampler_form(sform, k_topics=k_topics,
+                                  pinned=nwk_form is not None,
+                                  backend=backend)
+    active = resolve_sparse_active(k_topics, config.sparse_active)
+    return form, active, dict(sampler_form=form, sparse_active=active,
+                              sparse_mh=config.sparse_mh)
+
+
+def resolve_sparse_active(k_topics: int, sparse_active: int = 0) -> int:
+    """Static width A of the per-doc active-topic block. 0 = auto: the
+    smallest pow2 >= max(8, K/16), capped at K."""
+    if sparse_active > 0:
+        return min(int(k_topics), int(sparse_active))
+    return min(int(k_topics), pow2_bucket(max(8, k_topics // 16)))
 
 
 def check_block(config: LDAConfig, block: int) -> None:
@@ -97,6 +207,35 @@ class GibbsState:
     acc_ndk: torch.Tensor  # float32 [D, K] posterior-mean sums
     acc_nwk: torch.Tensor  # float32 [V, K]
     n_acc: int             # number of accumulated sweeps (every chain)
+
+
+# A checkpoint's arrays, under the reference's GibbsState names and
+# layouts: n_acc is an int32 array, [C] for C chains as the reference's
+# vmapped state holds it, and the noise source's state is `rng_state`
+# (the reference saves its threefry `key` instead).
+_STATE_TENSORS = ("z", "n_dk", "n_wk", "n_k", "acc_ndk", "acc_nwk")
+
+
+def state_arrays(state: GibbsState, noise) -> dict[str, np.ndarray]:
+    """The arrays `checkpoint.save` writes for `state` and the noise
+    source that continues it."""
+    out = {name: getattr(state, name).cpu().numpy()
+           for name in _STATE_TENSORS}
+    out["n_acc"] = np.full(state.z.shape[:-2], state.n_acc, np.int32)
+    out["rng_state"] = np.asarray(noise.get_state())
+    return out
+
+
+def state_from_arrays(arrays: dict, device: torch.device) -> GibbsState:
+    """A `GibbsState` on `device` from a checkpoint's arrays, each
+    tensor contiguous: K1 checks the contiguity and chain strides of
+    the z [C, n_blocks, B] it takes strided views of."""
+    fields = {name: torch.from_numpy(np.ascontiguousarray(arrays[name]))
+              .to(device).contiguous() for name in _STATE_TENSORS}
+    n_acc = np.unique(arrays["n_acc"])
+    if n_acc.size != 1:
+        raise ValueError(f"chains disagree on n_acc: {n_acc.tolist()}")
+    return GibbsState(**fields, n_acc=int(n_acc[0]))
 
 
 class TorchNoise:
@@ -129,6 +268,17 @@ class TorchNoise:
             u.clamp_min_(torch.finfo(torch.float32).tiny)
             return -torch.log(-torch.log(u))
         return u.clamp_min_(1e-38)
+
+    def get_state(self) -> np.ndarray:
+        """The generator's state as uint8 bytes (on a card: its Philox
+        seed and offset), what a checkpoint stores as `rng_state`. Only
+        this restores the stream exactly: `torch.rand` on a card
+        advances the offset by a rounded amount a call."""
+        return self.generator.get_state().numpy().copy()
+
+    def set_state(self, state: np.ndarray) -> None:
+        self.generator.set_state(torch.from_numpy(
+            np.ascontiguousarray(state, dtype=np.uint8)))
 
 
 def _counts(z: torch.Tensor, docs: torch.Tensor, words: torch.Tensor,
@@ -265,15 +415,21 @@ def plan_segments(start: int, n_sweeps: int, superstep_size: int, *,
 
 
 def run_fit_segments(state, start: int, segments, *, superstep_fn,
-                     initial_ll_fn, notify):
+                     initial_ll_fn, checkpoint_every: int, checkpoint_dir,
+                     save_fn, fault_sweep: int | None, notify):
     """Drive the fit loop over `segments` — the reference's
-    `run_fit_segments` (`lda_gibbs.py:921`) without its checkpoint and
-    fault hooks, which this slice does not port.
+    `run_fit_segments` (`lda_gibbs.py:921`).
 
+    Per segment: one superstep (the first also evaluates the pre-sweep
+    ll), an ll_history entry at the boundary, then checkpoint save, the
+    legacy fault sweep's SimulatedPreemption, the fault plan's
+    `fit:sweep` site, and the callback, in that order.
     `superstep_fn(state, start_sweep, n_steps, with_initial_ll)`
     returns (state, ll) or (state, ll0, ll); `initial_ll_fn(state)`
-    serves the no-segments case; `notify(sweep, state, ll)` is the
-    per-segment callback. Returns (state, ll_history)."""
+    serves the no-segments case (a resume at or after n_sweeps);
+    `save_fn(state, sweep)` persists a checkpoint; `notify(sweep,
+    state, ll)` is the per-segment callback. Returns (state,
+    ll_history)."""
     ll_history: list[tuple[int, float]] = []
     if not segments:
         ll_history.append((start - 1, float(initial_ll_fn(state))))
@@ -285,6 +441,16 @@ def run_fit_segments(state, start: int, segments, *, superstep_fn,
             state, ll = superstep_fn(state, seg_start, seg_len, False)
         s = seg_start + seg_len - 1
         ll_history.append((s, float(ll)))
+        if (checkpoint_dir is not None and checkpoint_every > 0
+                and (s + 1) % checkpoint_every == 0):
+            save_fn(state, s)
+        if fault_sweep is not None and s == fault_sweep:
+            raise ckpt.SimulatedPreemption(
+                f"fault injected after sweep {s} "
+                f"(checkpoint_dir={checkpoint_dir})")
+        # Declarative chaos plan (ONIX_FAULT_PLAN `fit:sweep@N=...`):
+        # fires at the first superstep boundary at or after sweep N.
+        faults.fire("fit", "sweep", index=s)
         if notify is not None:
             notify(s, state, ll_history[-1][1])
     return state, ll_history
@@ -343,23 +509,34 @@ def _chains_log_likelihood(theta, phi_wk, docs, words, mask):
 
 class GibbsLDA:
     """Host-side fit loop: the port of the reference's `GibbsLDA`
-    (dense sampler, any number of chains, no checkpoints).
+    (dense sampler, any number of chains, checkpoint resume).
 
     `device` defaults to "cuda" and raises without a card. `sampler`
     pins the categorical draw ("gumbel" | "race"); None follows the
     device as the reference does (`lda_gibbs.py:714`): Gumbel on a card,
     the race on the CPU. The tests use it to run the card's form on the
-    CPU."""
+    CPU. The sampler form resolves once here, as the reference's does
+    (`resolve_sampler`, keyed on the device type); a form that resolves
+    to "sparse" raises, since that arm is slice 4."""
 
     def __init__(self, config: LDAConfig, n_docs: int, n_vocab: int, *,
                  device: str | torch.device = "cuda",
                  sampler: str | None = None):
         config.validate()
-        check_supported(config)
         self.config = config
         self.n_docs = n_docs
         self.n_vocab = n_vocab
         self.device = resolve_device(device)
+        nwk_form = None if config.nwk_form == "auto" else config.nwk_form
+        self.sampler_form, self.sparse_active, _ = resolve_sampler(
+            config, k_topics=config.n_topics, backend=self.device.type,
+            nwk_form=nwk_form)
+        if self.sampler_form == "sparse":
+            raise not_ported(
+                f"the sparse sampler (lda.sampler_form="
+                f"{config.sampler_form!r} resolves to 'sparse' at K="
+                f"{config.n_topics} on {self.device.type})",
+                "slice 4 (sparse sampler)")
         if sampler is None:
             self.use_gumbel = self.device.type != "cpu"
         elif sampler in ("gumbel", "race"):
@@ -381,17 +558,54 @@ class GibbsLDA:
                 a.reshape(nb, block))).to(self.device)
         return dev(padded.doc_ids), dev(padded.word_ids), dev(mask)
 
+    def fingerprint(self, n_tokens: int, superstep: int) -> str:
+        """The run's checkpoint identity: the reference's `fingerprint`
+        with its sampler and merge entries, plus the port's generator
+        (`rng`, `draw`), so that a card's checkpoint never resumes on
+        the CPU nor the reverse, and neither package adopts the other's
+        sampler state."""
+        cfg = self.config
+        return ckpt.fingerprint(
+            cfg, self.n_docs, self.n_vocab, n_tokens, superstep=superstep,
+            extra={**sampler_fingerprint(self.sampler_form,
+                                         self.sparse_active, cfg.sparse_mh),
+                   **merge_fingerprint(cfg.merge_form, cfg.merge_staleness),
+                   "rng": f"torch.{self.device.type}",
+                   "draw": "gumbel" if self.use_gumbel else "race"})
+
     def fit(self, corpus: Corpus, n_sweeps: int | None = None,
-            callback=None, noise=None) -> dict:
+            callback=None, noise=None, checkpoint_dir=None,
+            resume: bool = True,
+            fault_inject_sweep: int | None = None) -> dict:
         """Run the fit: init, `n_sweeps` sweeps in superstep segments
         with the burn-in fold, and the posterior estimates.
 
         `noise` is the random source (default: a `TorchNoise` seeded
         with `config.seed` on the fit's device, for `config.n_chains`
         chains). `callback(sweep, state, ll)` makes every segment one
-        sweep long, as in the reference. Returns {"state", "theta"
-        [D,K], "phi_wk" [V,K] (numpy f32; [C,D,K] and [C,V,K] for C > 1
-        chains), "ll_history"}; the ll is the mean over chains."""
+        sweep long, as in the reference.
+
+        Checkpoints, as the reference's fit (`lda_gibbs.py:1178-1290`):
+        with `checkpoint_dir`, the fit saves every
+        `config.checkpoint_every` sweeps into
+        `<checkpoint_dir>/<fingerprint>` and, with `resume`, starts from
+        the newest intact checkpoint there: the state goes back on the
+        device and the noise source's state is restored before any
+        draw, so the resumed fit equals the uninterrupted one bit for
+        bit. Saving needs a noise source with `get_state`, resuming one
+        with `set_state`. `fault_inject_sweep` (or env
+        ONIX_FAULT_SWEEP) raises SimulatedPreemption right after that
+        sweep.
+
+        Returns {"state", "theta" [D,K], "phi_wk" [V,K] (numpy f32;
+        [C,D,K] and [C,V,K] for C > 1 chains), "ll_history"}; the ll is
+        the mean over chains. With `checkpoint_dir` it also returns
+        "checkpoint": the sweep resumed from (None for a fresh start)
+        and the walls of the load and of each save."""
+        if fault_inject_sweep is None:
+            env = os.environ.get("ONIX_FAULT_SWEEP")
+            fault_inject_sweep = int(env) if env else None
+
         cfg = self.config
         n_sweeps = cfg.n_sweeps if n_sweeps is None else n_sweeps
         S = cfg.superstep or SUPERSTEP_DEFAULT
@@ -400,12 +614,38 @@ class GibbsLDA:
         chains = cfg.n_chains
         if noise is None:
             noise = TorchNoise(cfg.seed, self.device, n_chains=chains)
-        if chains == 1:
-            state = init_state(docs, words, mask, self.n_docs, self.n_vocab,
-                               cfg.n_topics, noise)
-        else:
-            state = init_chains(docs, words, mask, self.n_docs,
-                                self.n_vocab, cfg.n_topics, noise, chains)
+        walls = {"resumed_from": None, "load_s": None, "save_s": []}
+        if checkpoint_dir is not None:
+            fp = self.fingerprint(corpus.n_tokens, S)
+            checkpoint_dir = pathlib.Path(checkpoint_dir) / fp
+            if cfg.checkpoint_every > 0 and not hasattr(noise, "get_state"):
+                raise ValueError(
+                    "lda.checkpoint_every > 0 needs a noise source with "
+                    f"get_state(); {type(noise).__name__} has none")
+        state = None
+        start = 0
+        if checkpoint_dir is not None and resume:
+            t0 = time.perf_counter()
+            saved = ckpt.load_latest(checkpoint_dir)
+            if saved is not None and saved.meta.get("fingerprint") == fp:
+                if not hasattr(noise, "set_state"):
+                    raise ValueError(
+                        "resuming from a checkpoint needs a noise source "
+                        f"with set_state(); {type(noise).__name__} has "
+                        "none")
+                noise.set_state(saved.arrays["rng_state"])
+                state = state_from_arrays(saved.arrays, self.device)
+                start = saved.sweep + 1
+                walls.update(resumed_from=saved.sweep,
+                             load_s=time.perf_counter() - t0)
+        if state is None:
+            if chains == 1:
+                state = init_state(docs, words, mask, self.n_docs,
+                                   self.n_vocab, cfg.n_topics, noise)
+            else:
+                state = init_chains(docs, words, mask, self.n_docs,
+                                    self.n_vocab, cfg.n_topics, noise,
+                                    chains)
 
         def ll_of(st):
             theta, phi = posterior_estimates(st, alpha=cfg.alpha,
@@ -422,16 +662,31 @@ class GibbsLDA:
             ll = ll_of(st)
             return (st, ll0, ll) if with_initial_ll else (st, ll)
 
-        segments = plan_segments(0, n_sweeps, S,
-                                 per_sweep=callback is not None)
+        def save_fn(st, s):
+            t0 = time.perf_counter()
+            ckpt.save(checkpoint_dir, s, state_arrays(st, noise),
+                      {"fingerprint": fp, "engine": "gibbs"})
+            walls["save_s"].append(time.perf_counter() - t0)
+
+        segments = plan_segments(
+            start, n_sweeps, S,
+            checkpoint_every=(cfg.checkpoint_every
+                              if checkpoint_dir is not None else 0),
+            fault_sweep=fault_inject_sweep,
+            per_sweep=callback is not None)
         state, ll_history = run_fit_segments(
-            state, 0, segments, superstep_fn=superstep_fn,
-            initial_ll_fn=ll_of, notify=callback)
+            state, start, segments, superstep_fn=superstep_fn,
+            initial_ll_fn=ll_of, checkpoint_every=cfg.checkpoint_every,
+            checkpoint_dir=checkpoint_dir, save_fn=save_fn,
+            fault_sweep=fault_inject_sweep, notify=callback)
         theta, phi_wk = posterior_estimates(state, alpha=cfg.alpha,
                                             eta=cfg.eta)
-        return {
+        out = {
             "state": state,
             "theta": theta.cpu().numpy(),
             "phi_wk": phi_wk.cpu().numpy(),   # phi[k,v] = phi_wk[v,k]
             "ll_history": ll_history,
         }
+        if checkpoint_dir is not None:
+            out["checkpoint"] = walls
+        return out

@@ -6,7 +6,15 @@ Read the day's partition from the store, create words, build the corpus
 the device, score every raw event, and write the per-day results CSV,
 the clients CSV and a run manifest. The files keep the reference's
 schema; the manifest adds `device` (the torch device and card name)
-and `kernel_launches` (K1 launches during the fit).
+and `kernel_launches` (K1 launches during the fit), and with
+`lda.checkpoint_every > 0` also `checkpoint` (the sweep the fit resumed
+from and the walls of the load and of each save).
+
+A day of `COLUMNAR_AUTO_MIN_ROWS` rows or more (or any day under
+`pipeline.columnar="on"`) is read column by column
+(`pipelines/columnar.py`), and the winners' raw rows are read back by
+index; the fit checkpoints under `<store.checkpoint_dir>/<datatype>/
+<YYYYMMDD>`, so a preempted run resumes where it stopped.
 """
 
 from __future__ import annotations
@@ -24,18 +32,16 @@ from onix_torch.config import OnixConfig
 from onix_torch.device import describe, resolve_device
 from onix_torch.models import sample_count
 from onix_torch.models.scoring import score_all, select_suspicious
+from onix_torch.pipelines import columnar
 from onix_torch.pipelines.corpus_build import (CorpusBundle, build_corpus,
                                                event_scores,
                                                select_suspicious_docs)
 from onix_torch.pipelines.words import WORD_FNS
 from onix_torch.store import Store, feedback_path, results_path
-from onix_torch.utils.obs import Meter, RunLog, maybe_trace, trace_scope
+from onix_torch.utils.obs import (Meter, RunLog, counters, maybe_trace,
+                                  trace_scope)
 
 BENIGN_LABEL = 3   # the reference's severity scale: 1/2 = threat, 3 = benign
-
-# Day size from which the reference's "auto" read switches to the
-# columnar reader (onix/pipelines/columnar.py COLUMNAR_AUTO_MIN_ROWS).
-COLUMNAR_AUTO_MIN_ROWS = 2_000_000
 
 
 def load_feedback(cfg: OnixConfig, datatype: str, date: str) -> pd.DataFrame | None:
@@ -79,10 +85,16 @@ def fit_engine(cfg: OnixConfig, bundle: CorpusBundle, engine: str,
         raise ValueError(f"unknown engine {engine!r}")
     from onix_torch.models.lda_gibbs import GibbsLDA
     corpus = bundle.corpus
+    # Resume-on-preemption: per-(datatype, date) checkpoint dir, active
+    # when the config asks for it.
+    ck_dir = None
+    if cfg.lda.checkpoint_every > 0:
+        ck_dir = (pathlib.Path(cfg.store.checkpoint_dir)
+                  / cfg.pipeline.datatype / cfg.pipeline.date.replace("-", ""))
     model = GibbsLDA(cfg.lda, corpus.n_docs, corpus.n_vocab, device=device)
-    fit = model.fit(corpus)
-    return {"theta": fit["theta"], "phi_wk": fit["phi_wk"],
-            "ll_history": fit["ll_history"]}
+    fit = model.fit(corpus, checkpoint_dir=ck_dir)
+    return {key: fit[key] for key in
+            ("theta", "phi_wk", "ll_history", "checkpoint") if key in fit}
 
 
 def run_scoring(cfg: OnixConfig, engine: str = "gibbs",
@@ -94,9 +106,6 @@ def run_scoring(cfg: OnixConfig, engine: str = "gibbs",
     directly; otherwise the store partition for (datatype, date) is
     read. `device` defaults to the card and raises without one."""
     dev = resolve_device(device)
-    if cfg.pipeline.columnar == "on":
-        raise not_ported("pipeline.columnar='on'",
-                         "slice 1, item 'columnar read'")
     t0 = time.time()
     datatype = cfg.pipeline.datatype
     date = cfg.pipeline.date
@@ -108,19 +117,39 @@ def run_scoring(cfg: OnixConfig, engine: str = "gibbs",
              config_hash=cfg.config_hash, device=str(dev))
 
     with log.stage("read"):
+        cols = None
         if table is None:
-            table = store.read(datatype, date)
-            if (cfg.pipeline.columnar == "auto"
-                    and len(table) >= COLUMNAR_AUTO_MIN_ROWS):
-                raise not_ported(
-                    f"a day of {len(table)} rows (pipeline.columnar='auto' "
-                    f"reads days of >= {COLUMNAR_AUTO_MIN_ROWS} rows "
-                    "column by column)", "slice 1, item 'columnar read'")
-        n_events = len(table)
-        log.emit("read_mode", columnar=False)
+            # Columnar day read: the day never materializes as one
+            # pandas frame — numeric columns + tiny unique-string tables
+            # per part, merged.
+            mode = cfg.pipeline.columnar
+            if mode == "on" or (mode == "auto"
+                                and columnar.day_row_count(
+                                    store, datatype, date)
+                                >= columnar.COLUMNAR_AUTO_MIN_ROWS):
+                try:
+                    cols = columnar.read_day_cols(store, datatype, date)
+                    n_events = len(cols["hour"])
+                except ValueError as e:
+                    # A malformed/unconvertible column: auto falls back
+                    # to the frame path (and says so); an explicit "on"
+                    # propagates.
+                    if mode == "on":
+                        raise
+                    log.emit("columnar_fallback", reason=str(e)[:200])
+            if cols is None and table is None:
+                table = store.read(datatype, date)
+        if table is not None:
+            n_events = len(table)
+        log.emit("read_mode", columnar=cols is not None)
 
     with log.stage("word_creation", n_events=n_events):
-        words = WORD_FNS[datatype](table)
+        # Same words either way: the *_from_arrays paths are bit-exact
+        # vs the string paths.
+        if cols is not None:
+            words = columnar.words_from_cols(datatype, cols)
+        else:
+            words = WORD_FNS[datatype](table)
     with log.stage("corpus_build"):
         feedback = load_feedback(cfg, datatype, date)
         bundle = build_corpus(words, feedback, cfg.pipeline.dupfactor)
@@ -172,7 +201,12 @@ def run_scoring(cfg: OnixConfig, engine: str = "gibbs",
     scoring_seconds = meter.seconds
     events_per_sec = meter.items / scoring_seconds if scoring_seconds else 0.0
 
-    results = table.iloc[top].copy().reset_index(drop=True)
+    if table is not None:
+        results = table.iloc[top].copy().reset_index(drop=True)
+    else:
+        # Columnar read: fetch just the winners' raw rows from the
+        # store parts (caller order = `top` order).
+        results = columnar.rows_at(store, datatype, date, top)
     results.insert(0, "score", ev_scores[top])
     results.insert(1, "event_idx", top)
     # Word/doc provenance: attribute each selected event to the token that
@@ -234,6 +268,14 @@ def run_scoring(cfg: OnixConfig, engine: str = "gibbs",
     }
     if model_saved is not None:
         manifest["model_saved"] = model_saved
+    if "checkpoint" in fit:
+        manifest["checkpoint"] = fit["checkpoint"]
+    # Resilience events tallied during this run (salvage skips, injected
+    # faults, checkpoint digest mismatches) — absent on a clean run.
+    resil = {**counters.snapshot("salvage"), **counters.snapshot("faults"),
+             **counters.snapshot("ckpt")}
+    if resil:
+        manifest["resilience"] = resil
     out_csv.with_suffix(".manifest.json").write_text(
         json.dumps(manifest, indent=2))
     cfg.archive(out_csv.with_suffix(".config.json"))

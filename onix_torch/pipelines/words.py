@@ -137,6 +137,13 @@ def ip_to_str(ips: np.ndarray) -> np.ndarray:
                     np.char.add(".", (ips & 255).astype(str))))
 
 
+def str_to_ip(strs) -> np.ndarray:
+    """Dotted-quad strings -> uint32 host-order IPs (a copy of
+    `onix/ingest/nfdecode.py`'s helper, for the columnar reader)."""
+    parts = np.array([s.split(".") for s in strs], np.uint32)
+    return (parts[:, 0] << 24) | (parts[:, 1] << 16) | (parts[:, 2] << 8) | parts[:, 3]
+
+
 def u32_to_ips(vals: np.ndarray) -> np.ndarray:
     """uint32 -> dotted-quad object strings (display path; call on
     uniques)."""

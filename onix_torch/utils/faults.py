@@ -1,8 +1,9 @@
 """Declarative fault injection — the chaos harness; a copy of
-`onix/utils/faults.py`. The port wires the model bank's and the serve
+`onix/utils/faults.py`. The port wires the fit's sites (fit:sweep,
+ckpt:save), the CLI's --fault-plan, and the model bank's and the serve
 layer's sites (bank:admit, bank:prefetch, serve:score,
-feedback:install); the fit's sites and the CLI's --fault-plan are
-still to come (ROADMAP.md queue 1, item 8).
+feedback:install); the ingest, streaming and host-fabric sites come
+with their slices.
 
 Generalizes the one-off ONIX_FAULT_SWEEP hook (which only knew how to
 preempt the Gibbs fit) into a fault PLAN injectable at every stage the

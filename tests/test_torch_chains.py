@@ -77,6 +77,15 @@ class ChainReplayNoise:
     def block(self, b, k, use_gumbel):
         return torch.stack([c.block(b, k, use_gumbel) for c in self.chains])
 
+    def get_state(self):
+        """The chains' current keys, [C, 2]: the reference's chained
+        checkpoint `key`."""
+        return np.stack([c.get_state() for c in self.chains])
+
+    def set_state(self, state):
+        for c, key in zip(self.chains, state):
+            c.set_state(key)
+
 
 def replay_noise(seed, device="cpu", n_chains=1):
     """A stand-in for `TorchNoise(seed, device, n_chains)` that replays

@@ -53,6 +53,14 @@ class JaxReplayNoise:
                                    minval=1e-38)
         return torch.from_numpy(np.array(x))
 
+    def get_state(self):
+        """The current key: what the reference's checkpoint saves as
+        `key`."""
+        return np.asarray(self.key)
+
+    def set_state(self, state):
+        self.key = jnp.asarray(state)
+
 
 @pytest.fixture(scope="module")
 def corpus():
@@ -251,8 +259,57 @@ def test_fit_callback_sees_every_sweep(corpus):
 ])
 def test_settings_outside_the_slice_raise(field, value):
     cfg = LDAConfig(**{field: value})
+    if field == "checkpoint_every":
+        # Ported: checkpoint resume runs (tests/test_torch_checkpoint.py).
+        assert tg.GibbsLDA(cfg, 10, 10, device="cpu").sampler_form == "dense"
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tg.GibbsLDA(cfg, 10, 10, device="cpu")
+
+
+@pytest.mark.parametrize("k,form,env,want", [
+    (64, "auto", None, "sparse"), (63, "auto", None, "dense"),
+    (64, "dense", None, "dense"), (64, "auto", "dense", "dense"),
+    (20, "auto", "sparse", "sparse"), (20, "sparse", "dense", "sparse"),
+])
+def test_sampler_form_resolves_as_the_reference(monkeypatch, k, form, env,
+                                                want):
+    """F7: the reference resolves auto to the sparse sampler on the CPU
+    from K = 64; so does the port, which then refuses (slice 4). An
+    explicit form or ONIX_SAMPLER_FORM decides first, as in the
+    reference."""
+    if env is None:
+        monkeypatch.delenv("ONIX_SAMPLER_FORM", raising=False)
+    else:
+        monkeypatch.setenv("ONIX_SAMPLER_FORM", env)
+    monkeypatch.delenv("ONIX_NWK_FORM", raising=False)
+    jcfg = JaxLDAConfig(n_topics=k, sampler_form=form)
+    assert jg.resolve_sampler(jcfg, k_topics=k)[0] == want
+    cfg = LDAConfig(n_topics=k, sampler_form=form)
+    got = tg.resolve_sampler(cfg, k_topics=k, backend="cpu")
+    assert got[0] == want
+    if want == "sparse":
+        with pytest.raises(NotImplementedError, match="slice 4"):
+            tg.GibbsLDA(cfg, 10, 10, device="cpu")
+    else:
+        assert tg.GibbsLDA(cfg, 10, 10, device="cpu").sampler_form == want
+
+
+def test_sampler_form_auto_stays_dense_on_the_card(monkeypatch):
+    """No card measurement exists, so auto resolves dense for "cuda" at
+    any K; a pinned n_wk form keeps auto dense on the CPU too."""
+    monkeypatch.delenv("ONIX_SAMPLER_FORM", raising=False)
+    monkeypatch.delenv("ONIX_NWK_FORM", raising=False)
+    for k in (64, 1024):
+        assert tg.resolve_sampler(LDAConfig(n_topics=k), k_topics=k,
+                                  backend="cuda")[0] == "dense"
+    cfg = LDAConfig(n_topics=64, nwk_form="scatter")
+    assert tg.GibbsLDA(cfg, 10, 10, device="cpu").sampler_form == "dense"
+    assert jg.resolve_sampler(JaxLDAConfig(n_topics=64, nwk_form="scatter"),
+                              k_topics=64, nwk_form="scatter")[0] == "dense"
+    monkeypatch.setenv("ONIX_SAMPLER_FORM", "alias")
+    with pytest.raises(ValueError, match="auto|dense|sparse"):
+        tg.GibbsLDA(LDAConfig(), 10, 10, device="cpu")
 
 
 def test_sampler_follows_device_and_override():

@@ -9,6 +9,7 @@
 """
 
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -147,11 +148,22 @@ def test_cli_scores_a_day_on_the_cpu(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--fault-inject", "3"],
                                   ["--fault-plan", "fit:sweep@1=preempt"]])
-def test_cli_fault_flags_are_not_ported(flag, tmp_path):
+def test_cli_fault_flags_are_not_ported(flag, tmp_path, monkeypatch):
+    # Ported: the flags are wired (tests/test_torch_faults.py). On a day
+    # the store does not hold, the run gets as far as the read.
     from onix_torch import cli
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(["score", "2016-07-08", "flow", "--device", "cpu",
-                  "-s", f"store.root={tmp_path}", *flag])
+    from onix_torch.utils import faults
+    monkeypatch.setenv("ONIX_FAULT_SWEEP", "")
+    try:
+        with pytest.raises(FileNotFoundError, match="no data for flow"):
+            cli.main(["score", "2016-07-08", "flow", "--device", "cpu",
+                      "-s", f"store.root={tmp_path}", *flag])
+        if flag[0] == "--fault-inject":
+            assert os.environ["ONIX_FAULT_SWEEP"] == flag[1]
+        else:
+            assert faults.active_plan().pending() == ["fit:sweep@1=preempt"]
+    finally:
+        faults.reset()
 
 
 def test_cpu_tensors_count_no_kernel_launch():

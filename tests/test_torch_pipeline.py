@@ -34,6 +34,7 @@ from onix_torch.pipelines import run as trun  # noqa: E402
 from onix_torch.pipelines import synth as tsynth  # noqa: E402
 from onix_torch.pipelines import words as twords  # noqa: E402
 from onix_torch.store import Store  # noqa: E402
+from onix_torch.utils.obs import counters as tcounters  # noqa: E402
 
 DATE = "2016-07-08"
 OVERRIDES = ["lda.n_topics=5", "lda.n_sweeps=10", "lda.block_size=1024"]
@@ -71,6 +72,7 @@ def runs(day, tmp_path_factory):
         cfg.pipeline.date = DATE
         cfg.pipeline.datatype = "flow"
         counters.reset()
+        tcounters.reset()   # the port's registry feeds its `resilience`
         if name == "jax":
             rc = run_mod.run_scoring(cfg)
         else:
@@ -211,6 +213,18 @@ def test_left_out_paths_raise(day, tmp_path, override, engine):
     Store(tmp_path).write("flow", DATE, table)
     cfg = tcfg.load_config(None, OVERRIDES + [f"store.root={tmp_path}"]
                            + ([override] if override else []))
+    if override == "pipeline.columnar=on":
+        # Ported: the day is read column by column and scores as the
+        # frame read does (tests/test_torch_columnar.py).
+        res = tmp_path / "results" / "20160708" / "flow_results.csv"
+        outs = []
+        for cfg_run in (cfg, tcfg.load_config(
+                None, OVERRIDES + [f"store.root={tmp_path}"])):
+            assert trun.run_scoring(cfg_run, engine=engine,
+                                    device="cpu") == 0
+            outs.append(pd.read_csv(res))
+        pd.testing.assert_frame_equal(*outs)
+        return
     if override == "serving.save_fitted=true":
         # Ported with the serving slice: the run no longer raises; it
         # saves the day's model where the reference's loader reads it,
