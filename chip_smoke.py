@@ -71,6 +71,23 @@ non-zero and prints no result line):
              launches each, the read, word and corpus walls and the
              process's peak RSS of each run.
 
+9. scale  — the scale day on the sharded engine (one card, a 1x1
+             mesh): (a) `onix_torch score` of the phase-5 day with
+             `--engine sharded` (60 x ceil(N / 65,536) = 1,860 K1
+             launches, recall >= 0.5, stage walls); (b) `run_scale` of
+             10^7 flow events at the reference's defaults (K 20, block
+             2^17, 20 sweeps, M 3,000, 20,000 hosts, 1,000 planted
+             anomalies): 20 x ceil(N / 131,072) = 3,060 K1 launches and
+             at least 0.8 of the planted anomalies among the winners,
+             events/s end to end and for the pipeline alone; (c) on
+             (b)'s model, `select_suspicious_events` under the torch f32
+             scan, kernel K2 (one launch) and the bf16 screen: winners
+             and scores equal bit for bit, the screen sound; (d) the
+             same day fitted on its first 2*10^6 events and scored in
+             chunks under ONIX_HOST_WORDS=1; (e) K2 at N = 10^7 and K1
+             at B = 131,072 against their plain versions, timed beside
+             the f32 scan, the screened scan and torch.topk.
+
 The last lines of standard output are the card's name and power limit,
 a `{"kernels": [...]}` line, and `{"ok": true, "device": {...}}`.
 Without a CUDA device, or run from a directory that holds no
@@ -387,103 +404,108 @@ def step_bound(d, w, z_old, z_new, mask, k, use_gumbel):
             else "operations", nbytes, ops)
 
 
-def phase_step(card: str) -> dict:
-    """K1's in-place block step against its plain version on the card,
-    each from its own copy of one snapshot: z, n_dk, n_wk and n_k must
-    be exactly equal, and z must be what `sample_count_block` draws from
-    the snapshot. The high-collision shape runs the step 20 times from
-    the same snapshot and every repeat must be identical: a step that
-    read counts its own block had changed would draw by the schedule.
+def step_case(card: str, label: str, b: int, k: int, v: int, d: int,
+              pad: int, use_gumbel: bool, seed: int, repeats: int = 1
+              ) -> dict:
+    """K1's in-place block step at one shape against its plain version
+    on the card, each from its own copy of one snapshot: z, n_dk, n_wk
+    and n_k must be exactly equal, and z must be what
+    `sample_count_block` draws from the snapshot; with `repeats` > 1
+    every repeat from the same snapshot must be identical (a step that
+    read counts its own block had changed would draw by the schedule).
     Times the call (CUDA events), each kernel (profiler) and the plain
     version, each stepping its own chain on with fresh noise every call
     (the same noise again would redraw the same topics and move almost
-    no token); returns the main path's row of the kernels line."""
+    no token). Returns the case's numbers."""
     import itertools
 
     import torch
 
     from onix_torch.models import sample_count as sc
+    sampler = "gumbel" if use_gumbel else "race"
+    n_dk, n_wk, n_k, noise, docs, words, z0, mask = k1_inputs(
+        b, k, v, d, pad, use_gumbel, seed=seed)
+    kw = dict(alpha=ALPHA, eta=ETA, v_eta=v * ETA, use_gumbel=use_gumbel)
+    snap = (n_dk, n_wk, n_k, z0)
+
+    def fresh():
+        return [t.clone() for t in snap]
+
+    def step(st, fn=sc.gibbs_block_step_, g=noise):
+        fn(st[0], st[1], st[2], st[3], g, docs, words, mask, **kw)
+    want = fresh()
+    step(want, sc.gibbs_block_step_plain)
+    z_snap, _ = sc.sample_count_block(n_dk, n_wk, n_k, noise, docs, words,
+                                      z0, mask, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(z_snap, want[3]):
+        raise AssertionError(f"K1 step {label}/{sampler}: the plain "
+                             "step's z is not the snapshot's draw")
+    first = None
+    for r in range(repeats):
+        got = fresh()
+        step(got)
+        torch.cuda.synchronize()
+        for name, a, e in zip(("n_dk", "n_wk", "n_k", "z"), got, want):
+            if not torch.equal(a, e):
+                bad = int((a != e).sum())
+                raise AssertionError(
+                    f"K1 step {label}/{sampler} repeat {r}: {name} "
+                    f"differs from the plain step at {bad} places")
+        if first is None:
+            first = got
+        elif not all(torch.equal(a, e) for a, e in zip(got, first)):
+            raise AssertionError(f"K1 step {label}/{sampler}: "
+                                 f"repeat {r} differs from repeat 0")
+    n_moved = int(((want[3] != z0) & (mask > 0)).sum())
+    err = max(float((a - e).abs().max()) for a, e in zip(first, want))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 10)
+    draws = itertools.cycle([k1_noise(gen, b, k, use_gumbel)
+                             for _ in range(8)])
+    work, plain_work = fresh(), fresh()
+    ms = event_ms(lambda: step(work, g=next(draws)))
+    plain_ms = event_ms(lambda: step(
+        plain_work, sc.gibbs_block_step_plain, next(draws)))
+    parts = profiled_ms(lambda: step(work, g=next(draws)))
+    sample_ms = sum(t for n, t in parts.items() if "sample_" in n)
+    apply_ms = sum(t for n, t in parts.items() if "apply_kernel" in n)
+    bound_ms, bound_by, nbytes, ops = step_bound(
+        docs, words, z0, want[3], mask, k, use_gumbel)
+    say(card, f"K1 step {label} B={b} K={k} V={v} D={d} pad={pad} "
+              f"{sampler}: z, n_dk, n_wk, n_k equal to plain "
+              f"({n_moved} tokens moved"
+              + (f", {repeats} repeats identical" if repeats > 1 else "")
+              + f"); call {ms:.5f} ms, plain {plain_ms:.5f} ms "
+              f"(CUDA events, median of 30); kernels (profiler): "
+              f"sample {sample_ms:.5f} ms, apply {apply_ms:.5f} ms, "
+              f"{len(parts)} device op(s) a call; bound "
+              f"{bound_ms:.5f} ms by {bound_by} ({nbytes} B, {ops} "
+              f"ops)")
+    if not (sample_ms > 0 and apply_ms > 0 and len(parts) == 2):
+        raise AssertionError(f"K1 step {label}/{sampler}: the "
+                             f"call ran {sorted(parts)}, not the "
+                             "sample and apply kernels alone")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_step(card: str) -> dict:
+    """`step_case` at every shape of K1_SHAPES, both samplers; the
+    high-collision shape runs the step 20 times from the same snapshot.
+    Returns the main path's row of the kernels line."""
     row = None
     for si, (label, b, k, v, d, pad) in enumerate(K1_SHAPES):
         repeats = 20 if label == "high collision" else 1
         for use_gumbel in (True, False):
-            sampler = "gumbel" if use_gumbel else "race"
-            n_dk, n_wk, n_k, noise, docs, words, z0, mask = k1_inputs(
-                b, k, v, d, pad, use_gumbel, seed=31 + si)
-            kw = dict(alpha=ALPHA, eta=ETA, v_eta=v * ETA,
-                      use_gumbel=use_gumbel)
-            snap = (n_dk, n_wk, n_k, z0)
-
-            def fresh():
-                return [t.clone() for t in snap]
-
-            def step(st, fn=sc.gibbs_block_step_, g=noise):
-                fn(st[0], st[1], st[2], st[3], g, docs, words, mask, **kw)
-            want = fresh()
-            step(want, sc.gibbs_block_step_plain)
-            z_snap, _ = sc.sample_count_block(n_dk, n_wk, n_k, noise, docs,
-                                              words, z0, mask, **kw)
-            torch.cuda.synchronize()
-            if not torch.equal(z_snap, want[3]):
-                raise AssertionError(f"K1 step {label}/{sampler}: the plain "
-                                     "step's z is not the snapshot's draw")
-            first = None
-            for r in range(repeats):
-                got = fresh()
-                step(got)
-                torch.cuda.synchronize()
-                for name, a, e in zip(("n_dk", "n_wk", "n_k", "z"), got,
-                                      want):
-                    if not torch.equal(a, e):
-                        bad = int((a != e).sum())
-                        raise AssertionError(
-                            f"K1 step {label}/{sampler} repeat {r}: {name} "
-                            f"differs from the plain step at {bad} places")
-                if first is None:
-                    first = got
-                elif not all(torch.equal(a, e) for a, e in zip(got, first)):
-                    raise AssertionError(f"K1 step {label}/{sampler}: "
-                                         f"repeat {r} differs from repeat 0")
-            n_moved = int(((want[3] != z0) & (mask > 0)).sum())
-            err = max(float((a - e).abs().max()) for a, e in zip(first, want))
-            gen = torch.Generator(device="cuda")
-            gen.manual_seed(41 + si)
-            draws = itertools.cycle([k1_noise(gen, b, k, use_gumbel)
-                                     for _ in range(8)])
-            work, plain_work = fresh(), fresh()
-            ms = event_ms(lambda: step(work, g=next(draws)))
-            plain_ms = event_ms(lambda: step(
-                plain_work, sc.gibbs_block_step_plain, next(draws)))
-            parts = profiled_ms(lambda: step(work, g=next(draws)))
-            sample_ms = sum(t for n, t in parts.items()
-                            if "sample_" in n)
-            apply_ms = sum(t for n, t in parts.items() if "apply_kernel" in n)
-            bound_ms, bound_by, nbytes, ops = step_bound(
-                docs, words, z0, want[3], mask, k, use_gumbel)
-            say(card, f"K1 step {label} B={b} K={k} V={v} D={d} pad={pad} "
-                      f"{sampler}: z, n_dk, n_wk, n_k equal to plain "
-                      f"({n_moved} tokens moved"
-                      + (f", {repeats} repeats identical" if repeats > 1
-                         else "")
-                      + f"); call {ms:.5f} ms, plain {plain_ms:.5f} ms "
-                      f"(CUDA events, median of 30); kernels (profiler): "
-                      f"sample {sample_ms:.5f} ms, apply {apply_ms:.5f} ms, "
-                      f"{len(parts)} device op(s) a call; bound "
-                      f"{bound_ms:.5f} ms by {bound_by} ({nbytes} B, {ops} "
-                      f"ops)")
-            if not (sample_ms > 0 and apply_ms > 0 and len(parts) == 2):
-                raise AssertionError(f"K1 step {label}/{sampler}: the "
-                                     f"call ran {sorted(parts)}, not the "
-                                     "sample and apply kernels alone")
+            got = step_case(card, label, b, k, v, d, pad, use_gumbel,
+                            seed=31 + si, repeats=repeats)
             if si == 0 and use_gumbel:
                 # The main path runs the Gumbel form on the card.
                 row = {"name": "gibbs_block_step_", "route": "cuda",
                        "source": "onix_torch/csrc/sample_count.cu",
                        "replaces": "onix/models/pallas_gibbs.py:148",
-                       "launches": None, "max_abs_err": err,
-                       "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": bound_ms, "bound_by": bound_by,
-                       "library_ms": None}
+                       "launches": None, **got, "library_ms": None}
     return {"sample_count": row}
 
 
@@ -1219,8 +1241,8 @@ def phase_slice(card: str, root: pathlib.Path, chains: int = 1):
     score` on it with serving.save_fitted on, so the day's model lands
     under <root>/models for the serving phase; with `chains` > 1 the
     run adds `-s lda.n_chains=<chains>` and K1's launches must stay
-    those of one chain. Returns the K1 launch count, the day's table
-    and its planted-anomaly recall."""
+    those of one chain. Returns the K1 launch count, the day's table,
+    its planted anomalies and their recall."""
     import numpy as np
     import pandas as pd
     import torch
@@ -1302,7 +1324,7 @@ def phase_slice(card: str, root: pathlib.Path, chains: int = 1):
               f"{lls[0]:.5f} -> {lls[-1]:.5f}")
     if recall < RECALL_BAR:
         raise AssertionError(f"recall {recall} under {RECALL_BAR}")
-    return {"sample_count": launches}, table, recall
+    return {"sample_count": launches}, table, planted, recall
 
 
 # -- phase 6 ----------------------------------------------------------------
@@ -1853,6 +1875,257 @@ def phase_resilience(card: str, root: pathlib.Path, table,
               f"{m['n_results']} results")
 
 
+# -- phase 9 ----------------------------------------------------------------
+
+# The scale day: `run_scale` at the reference's defaults (K 20, block
+# 2^17, 20 sweeps, M 3,000; n_hosts and the planted anomalies follow
+# the event count, scale.py's `run_scale` and `_default_anomalies`).
+SCALE_EVENTS, SCALE_TRAIN, SCALE_BLOCK, SCALE_M = (10_000_000, 2_000_000,
+                                                   1 << 17, 3000)
+# The reference's own bar for planted anomalies among the scale day's
+# winners (tests/test_scale.py).
+SCALE_PLANTED_BAR = 0.8
+
+
+def check_launches(what: str, got: int, want: int) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: {got} kernel launches, want {want}")
+
+
+def phase_scale(card: str, root: pathlib.Path, table, planted,
+                n_events: int = SCALE_EVENTS,
+                n_train: int = SCALE_TRAIN) -> dict:
+    """The scale day and the sharded engine on the card; see the module
+    docstring. Returns the scale entries of the kernels line's rows."""
+    import os
+
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from onix_torch import cli
+    from onix_torch.models import fused_serve as fs
+    from onix_torch.models import sample_count, scoring
+    from onix_torch.pipelines import scale
+    from onix_torch.pipelines.corpus_build import (build_corpus,
+                                                   select_suspicious_events)
+    from onix_torch.pipelines.synth import SYNTH_ARRAYS
+    from onix_torch.store import Store
+    date = "2016-07-08"
+    # (a) score --engine sharded on phase 5's day.
+    day = root / "sharded"
+    Store(day).write("flow", date, table)
+    torch.cuda.synchronize()
+    sample_count.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["score", date, "flow", "-s", f"store.root={day}",
+                   "--engine", "sharded"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_a = sample_count.launches
+    if rc != 0:
+        raise AssertionError(f"score --engine sharded exited {rc}")
+    got = day_outputs(day / "results")
+    man = got["manifest"]
+    check_launches("score --engine sharded: K1", launches_a,
+                   60 * math.ceil(man["n_tokens"] / 65_536))
+    check_launches("score --engine sharded: K1 (manifest)",
+                   man["kernel_launches"]["sample_count"], launches_a)
+    res = pd.read_csv(day / "results" / "20160708" / "flow_results.csv")
+    recall = len(set(res["event_idx"]) & set(planted.tolist())) / len(
+        planted)
+    stages = {r["stage"]: r["wall_s"] for r in got["runlog"]
+              if r["event"] == "stage_end"}
+    lls = [ll for _, ll in man["ll_history"]]
+    say(card, f"scale (a): onix_torch score {date} flow --engine sharded: "
+              f"engine {man['engine']}, D={man['n_docs']} V={man['n_vocab']} "
+              f"N={man['n_tokens']}, K1 launches {launches_a}; wall "
+              f"{wall:.2f} s; stages {json.dumps(stages)}; recall "
+              f"{recall:.4f} (bar {RECALL_BAR}); ll {lls[0]:.5f} -> "
+              f"{lls[-1]:.5f}")
+    if recall < RECALL_BAR or not lls[-1] > lls[0]:
+        raise AssertionError(f"score --engine sharded: recall {recall}, "
+                             f"ll {lls[0]} -> {lls[-1]}")
+
+    # (b) run_scale at the defaults; the resume dir keeps the model.
+    resume = root / "scale_resume"
+    torch.cuda.synchronize()
+    sample_count.launches = fs.launches = 0
+    t0 = time.perf_counter()
+    with PeakRss() as rss:
+        m = scale.run_scale(n_events, resume_dir=str(resume),
+                            out_path=root / "scale.json")
+    wall = time.perf_counter() - t0
+    launches_b = sample_count.launches
+    want_b = 20 * math.ceil(m["n_train_tokens"] / SCALE_BLOCK)
+    check_launches("run_scale: K1", launches_b, want_b)
+    check_launches("run_scale: K1 (manifest)",
+                   m["kernel_launches"]["sample_count"], want_b)
+    check_launches("run_scale: K2", fs.launches, 0)   # "auto" is the scan
+    hits, n_planted = m["planted_in_bottom_k"], m["planted_anomalies"]
+    say(card, f"scale (b): run_scale({n_events}): D={m['n_docs']} "
+              f"V={m['n_vocab']} N={m['n_train_tokens']} n_hosts="
+              f"{m['n_hosts']}, device {m['device']}, K1 launches "
+              f"{launches_b}; walls {json.dumps(m['walls_seconds'])}; "
+              f"the fit's {json.dumps(m['fit_walls_seconds'])}; "
+              f"{m['events_per_second_end_to_end']} events/s end to end, "
+              f"{m['events_per_second_pipeline_only']} events/s pipeline "
+              f"only; wall {wall:.2f} s with the resume dir's saves; peak "
+              f"RSS {rss.peak:.3f} GiB ({rss.before:.3f} before); planted "
+              f"in the bottom {m['max_results']}: {hits} of {n_planted} "
+              f"(bar {SCALE_PLANTED_BAR}); score range "
+              f"{m['selected_score_range']}")
+    if hits < SCALE_PLANTED_BAR * n_planted:
+        raise AssertionError(f"run_scale: {hits} of {n_planted} planted "
+                             f"anomalies in the bottom-k, under "
+                             f"{SCALE_PLANTED_BAR} of them")
+
+    # (c) (b)'s model through the three selection arms.
+    with np.load(resume / "model.npz") as z:
+        theta, phi = z["theta"], z["phi_wk"]
+    t0 = time.perf_counter()
+    cols = SYNTH_ARRAYS["flow"](n_events, n_hosts=m["n_hosts"],
+                                n_anomalies=n_planted, seed=0)
+    bundle = build_corpus(scale._words_from_cols("flow", cols))
+    del cols
+    say(card, f"scale (c): the day's corpus rebuilt in "
+              f"{time.perf_counter() - t0:.2f} s")
+    arms = {}
+    saved = {k: os.environ.get(k) for k in ("ONIX_SERVE_FORM",
+                                            "ONIX_SCREENED_SELECT")}
+    try:
+        os.environ.pop("ONIX_SERVE_FORM", None)
+        for arm, form, screened in (("xla", "xla", "0"),
+                                    ("fused", "fused", "0"),
+                                    ("screened", "auto", "1")):
+            os.environ["ONIX_SCREENED_SELECT"] = screened
+            torch.cuda.synchronize()
+            fs.launches = 0
+            top = select_suspicious_events(bundle, theta, phi, n_events,
+                                           tol=1.0, max_results=SCALE_M,
+                                           serve_form=form)
+            torch.cuda.synchronize()
+            arms[arm] = (top, fs.launches)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    ref = arms["xla"][0]
+    for arm, (top, n_k2) in arms.items():
+        if not (torch.equal(top.indices, ref.indices)
+                and torch.equal(top.scores, ref.scores)):
+            raise AssertionError(f"scale (c): the {arm} arm's winners "
+                                 "differ from the f32 scan's")
+        check_launches(f"scale (c) {arm}: K2", n_k2,
+                       1 if arm == "fused" else 0)
+    tab = scoring.score_table(torch.from_numpy(theta).cuda(),
+                              torch.from_numpy(phi).cuda()).reshape(-1)
+    n_real = bundle.n_real_tokens
+    flat = (bundle.corpus.doc_ids[:n_real].astype(np.int64) * phi.shape[0]
+            + bundle.corpus.word_ids[:n_real])
+    si = torch.from_numpy(flat[:n_events].astype(np.int32)).cuda()
+    di = torch.from_numpy(flat[n_events:].astype(np.int32)).cuda()
+    tab_b = tab.to(torch.bfloat16)
+    scr = scoring.table_pair_bottom_k_screened(
+        tab, si, di, tab_b, tol=1.0, max_results=SCALE_M)
+    if not bool(scr.sound):
+        raise AssertionError("scale (c): the bf16 screen did not certify")
+    # (e), K2: the kernel alone on the day's two score columns against
+    # its plain version, and the times of every arm.
+    sa = tab[si.to(torch.int64)].contiguous()
+    sb = tab[di.to(torch.int64)].contiguous()
+    k2_args = ((sa, sb), None, None, None, None, 1.0)
+    k2_kw = dict(mode="min2", max_results=SCALE_M)
+    kern = fs.fused_call(*k2_args, **k2_kw)
+    plain = fs.fused_call_plain(*k2_args, **k2_kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(kern.indices, plain.indices)
+            and torch.equal(kern.scores, plain.scores)
+            and torch.equal(kern.indices, ref.indices)):
+        raise AssertionError("scale (e): K2 at the scale day differs from "
+                             "its plain version")
+    fin = torch.isfinite(plain.scores)
+    k2_err = float(torch.where(fin, (kern.scores - plain.scores).abs(),
+                               torch.zeros_like(kern.scores)).max())
+    screened = torch.minimum(sa, sb)
+    screened = torch.where(screened < 1.0, screened,
+                           torch.full_like(screened, float("inf")))
+    times = {
+        "K2 alone": event_ms(lambda: fs.fused_call(*k2_args, **k2_kw),
+                             reps=10),
+        "K2 plain version": event_ms(
+            lambda: fs.fused_call_plain(*k2_args, **k2_kw), reps=10),
+        "fused select (gathers + K2)": event_ms(
+            lambda: fs.fused_table_pair_bottom_k(
+                tab, si, di, tol=1.0, max_results=SCALE_M), reps=10),
+        "f32 scan": event_ms(lambda: scoring.table_pair_bottom_k(
+            tab, si, di, tol=1.0, max_results=SCALE_M), reps=10),
+        "bf16 screened scan": event_ms(
+            lambda: scoring.table_pair_bottom_k_screened(
+                tab, si, di, tab_b, tol=1.0, max_results=SCALE_M), reps=10),
+        "torch.topk of the screened scores": event_ms(
+            lambda: torch.topk(screened, SCALE_M, largest=False,
+                               sorted=True), reps=10)}
+    k2_kw_bound = dict(ops=(sa, sb), mask=None, mode="min2", filt=None,
+                       max_results=SCALE_M, shape=(1, n_events))
+    bound_ms, bound_by, nbytes, ops = k2_bound(k2_kw_bound, n_events)
+    form = fs.kernel_form(1, n_events, SCALE_M)
+    say(card, f"scale (c): xla, fused and bf16-screened selections equal "
+              f"bit for bit ({int((ref.indices >= 0).sum())} winners), "
+              f"screen sound, K2 launched once (fused arm, {form} form)")
+    say(card, "scale (e): K2 at N=" + str(n_events) + f", M={SCALE_M}: "
+              "equal to plain; " + "; ".join(
+                  f"{k} {v:.5f} ms" for k, v in times.items())
+              + f" (CUDA events, median of 10); bound {bound_ms:.5f} ms by "
+              f"{bound_by} ({nbytes} B, {ops} ops)")
+    k2_row = {"N": n_events, "M": SCALE_M, "form": form,
+              "launches": arms["fused"][1], "max_abs_err": k2_err,
+              "ms": times["K2 alone"], "plain_ms": times["K2 plain version"],
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "topk_ms": times["torch.topk of the screened scores"],
+              "f32_scan_ms": times["f32 scan"],
+              "screened_scan_ms": times["bf16 screened scan"],
+              "fused_select_ms": times["fused select (gathers + K2)"]}
+    del bundle, tab, tab_b, si, di, sa, sb, screened
+
+    # (d) the streamed host arm: fit on n_train events, score them all.
+    saved = os.environ.get("ONIX_HOST_WORDS")
+    os.environ["ONIX_HOST_WORDS"] = "1"
+    try:
+        torch.cuda.synchronize()
+        sample_count.launches = 0
+        t0 = time.perf_counter()
+        md = scale.run_scale(n_events, train_events=n_train)
+        wall = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            os.environ.pop("ONIX_HOST_WORDS", None)
+        else:
+            os.environ["ONIX_HOST_WORDS"] = saved
+    check_launches("run_scale streamed: K1", sample_count.launches,
+                   20 * math.ceil(md["n_train_tokens"] / SCALE_BLOCK))
+    if md["words_mode"] != "host":
+        raise AssertionError(f"streamed run: words_mode {md['words_mode']}")
+    say(card, f"scale (d): run_scale({n_events}, train_events={n_train}) "
+              f"under ONIX_HOST_WORDS=1: N={md['n_train_tokens']}, K1 "
+              f"launches {sample_count.launches}; walls "
+              f"{json.dumps(md['walls_seconds'])}; "
+              f"{md['events_per_second_end_to_end']} events/s end to end, "
+              f"{md['events_per_second_pipeline_only']} pipeline only; "
+              f"planted in the bottom {md['max_results']}: "
+              f"{md['planted_in_bottom_k']} of {md['planted_anomalies']}; "
+              f"wall {wall:.2f} s")
+
+    # (e), K1: the block step at the scale day's block and table shapes.
+    k1_row = step_case(card, "scale day", SCALE_BLOCK, MAIN_K, m["n_vocab"],
+                       m["n_docs"], 0, True, seed=61)
+    k1_row.update(B=SCALE_BLOCK, launches=launches_b,
+                  launches_score_sharded=launches_a)
+    return {"sample_count": k1_row, "fused_serve": k2_row}
+
+
 def main() -> int:
     try:
         import torch
@@ -1881,11 +2154,11 @@ def main() -> int:
     phase_fit_profile(card)
     with tempfile.TemporaryDirectory(prefix="onix_torch_smoke_") as tmp:
         root = pathlib.Path(tmp)
-        launches, table, recall = phase_slice(card, root / "day")
+        launches, table, planted, recall = phase_slice(card, root / "day")
         clean = day_outputs(root / "day" / "results")
         launches.update(phase_serve(card, root / "day", table))
-        chain_launches, _, chain_recall = phase_slice(card, root / "chains",
-                                                      chains=8)
+        chain_launches, _, _, chain_recall = phase_slice(
+            card, root / "chains", chains=8)
         say(card, f"slice: recall at 8 chains {chain_recall:.4f}, at one "
                   f"chain {recall:.4f}")
         rows["sample_count"]["chains"]["launches"] = \
@@ -1895,6 +2168,11 @@ def main() -> int:
         t8 = time.perf_counter()
         phase_resilience(card, root, table, clean)
         say(card, f"phase 8 passed in {time.perf_counter() - t8:.1f} s")
+        t9 = time.perf_counter()
+        for name, scale_row in phase_scale(card, root, table,
+                                           planted).items():
+            rows[name]["scale"] = scale_row
+        say(card, f"phase 9 passed in {time.perf_counter() - t9:.1f} s")
     for name, row in rows.items():
         row["launches"] = launches[name]
     say(card, f"all phases passed in {time.perf_counter() - t0:.1f} s")

@@ -1,8 +1,9 @@
 """Command line of the PyTorch port.
 
     python -m onix_torch.cli score <date> <flow|dns|proxy> [--tol T]
-        [--max-results N] [--fault-inject SWEEP] [--fault-plan PLAN]
-        [-c CONFIG] [-s KEY.PATH=VALUE ...] [--device cuda|cpu]
+        [--max-results N] [--engine gibbs|sharded] [--fault-inject SWEEP]
+        [--fault-plan PLAN] [-c CONFIG] [-s KEY.PATH=VALUE ...]
+        [--device cuda|cpu]
     python -m onix_torch.cli serve [--port P] [--host H]
         [--models-dir DIR] [--bank-capacity C] [-c CONFIG]
         [-s KEY.PATH=VALUE ...] [--device cuda|cpu]
@@ -14,9 +15,10 @@ bank on the device (`onix_torch/oa/serve.py`). The device defaults to
 the card; `--device cpu` runs on the CPU. `--fault-inject N`
 preempts the Gibbs fit after sweep N (ONIX_FAULT_SWEEP), and
 `--fault-plan` installs a chaos plan (`utils/faults.py`); with `-s
-lda.checkpoint_every=E` a rerun resumes from the last checkpoint. The
-reference's `--engine svi|sharded` are accepted and raise
-NotImplementedError until their slices are ported.
+lda.checkpoint_every=E` a rerun resumes from the last checkpoint.
+`--engine sharded` fits with the sharded engine on one device (a 1×1
+`mesh`); the reference's `--engine svi` is accepted and raises
+NotImplementedError until its slice is ported.
 """
 
 from __future__ import annotations

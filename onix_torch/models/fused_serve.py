@@ -26,6 +26,9 @@ entry points that end in it. Pieces:
   kernel runs.
 - `kernel_form`, which of the kernel's two forms a call of given sizes
   runs (the kernel picks it by shape alone).
+- `select_serve_form`, the serve gate of the scale run's table scans
+  (`scoring.table_*_fast`): "fused" takes this kernel, "xla" the torch
+  f32 scan. The model bank keeps its own gate (`model_bank`).
 
 Differences from the reference's `_fused_call`: a leading request-row
 axis (1-d inputs are one row); the "dot" mode takes the tables and the
@@ -57,6 +60,7 @@ import ctypes
 
 import torch
 
+from onix_torch.config import resolve_form_gate
 from onix_torch.feedback.filter import (FilterTables, _member, _scale_col,
                                         apply_filter)
 from onix_torch.models.scoring import (TopK, score_events_in_order,
@@ -64,6 +68,29 @@ from onix_torch.models.scoring import (TopK, score_events_in_order,
 
 #: Kernel launches since the count was last set to 0.
 launches = 0
+
+# Events a call from which the fused kernel beats the torch f32 scan,
+# keyed on the torch device type — the reference's
+# `_SERVE_FUSED_MIN_EVENTS` (`onix/models/pallas_serve.py:118`). Empty,
+# as the reference's is: no measured crossover exists, so "auto"
+# resolves to "xla" on every device.
+_SERVE_FUSED_MIN_EVENTS: dict[str, float] = {}
+
+
+def select_serve_form(form: str, n_events: int, device) -> str:
+    """The serving-scan form of one call ("xla" | "fused"):
+    ONIX_SERVE_FORM > explicit `form` > the measured table for the
+    device type > "xla", through `config.resolve_form_gate`. Both forms
+    return the same winners, scores and tie order."""
+    def measured() -> str | None:
+        min_events = _SERVE_FUSED_MIN_EVENTS.get(torch.device(device).type)
+        if min_events is not None and n_events >= min_events:
+            return "fused"
+        return None
+
+    return resolve_form_gate(gate="serve_form", choices=("xla", "fused"),
+                             explicit=form, env_var="ONIX_SERVE_FORM",
+                             measured=measured, default="xla")
 
 MODES = ("dot", "min2", "scores")
 _FAMILIES = ("word_suppress", "word_boost", "pair_suppress", "pair_boost")

@@ -365,10 +365,13 @@ def sweep(state: GibbsState, docs: torch.Tensor, words: torch.Tensor,
     v_eta = n_vocab * eta
     n_blocks, b = docs.shape
     k_topics = state.n_k.shape[-1]
+    # One draw a block, shaped to the state's chain axis: a one-chain
+    # source's [B, K] serves a chained state of C = 1 too.
+    shape = (*state.z.shape[:-2], b, k_topics)
     for i in range(n_blocks):
         block_step(state, i, docs[i], words[i], mask[i],
-                   noise.block(b, k_topics, use_gumbel), alpha=alpha,
-                   eta=eta, v_eta=v_eta, use_gumbel=use_gumbel)
+                   noise.block(b, k_topics, use_gumbel).reshape(shape),
+                   alpha=alpha, eta=eta, v_eta=v_eta, use_gumbel=use_gumbel)
     if accumulate:
         state.acc_ndk += state.n_dk
         state.acc_nwk += state.n_wk
@@ -456,6 +459,53 @@ def run_fit_segments(state, start: int, segments, *, superstep_fn,
     return state, ll_history
 
 
+class CheckpointBook:
+    """A fit's checkpoints under `<checkpoint_dir>/<fingerprint>`, as
+    the reference's fit keeps them (`lda_gibbs.py:1178-1290`): `resume`
+    loads the newest intact checkpoint of this fingerprint, restores the
+    noise source's state before any draw and returns the state on the
+    device; `save` writes one (`state_arrays`). `walls` records the
+    sweep resumed from (None for a fresh start) and the walls of the
+    load and of each save: the manifest's `checkpoint` entry. Saving
+    needs a noise source with `get_state`, resuming one with
+    `set_state`."""
+
+    def __init__(self, checkpoint_dir, fingerprint: str, noise,
+                 checkpoint_every: int, engine: str):
+        self.dir = pathlib.Path(checkpoint_dir) / fingerprint
+        self.fingerprint = fingerprint
+        self.noise = noise
+        self.engine = engine
+        self.walls = {"resumed_from": None, "load_s": None, "save_s": []}
+        if checkpoint_every > 0 and not hasattr(noise, "get_state"):
+            raise ValueError(
+                "lda.checkpoint_every > 0 needs a noise source with "
+                f"get_state(); {type(noise).__name__} has none")
+
+    def resume(self, device: torch.device) -> tuple[GibbsState | None, int]:
+        """(state, first sweep to run), or (None, 0) when no checkpoint
+        of this fingerprint is intact."""
+        t0 = time.perf_counter()
+        saved = ckpt.load_latest(self.dir)
+        if saved is None or saved.meta.get("fingerprint") != self.fingerprint:
+            return None, 0
+        if not hasattr(self.noise, "set_state"):
+            raise ValueError(
+                "resuming from a checkpoint needs a noise source with "
+                f"set_state(); {type(self.noise).__name__} has none")
+        self.noise.set_state(saved.arrays["rng_state"])
+        state = state_from_arrays(saved.arrays, device)
+        self.walls.update(resumed_from=saved.sweep,
+                          load_s=time.perf_counter() - t0)
+        return state, saved.sweep + 1
+
+    def save(self, state: GibbsState, sweep: int) -> None:
+        t0 = time.perf_counter()
+        ckpt.save(self.dir, sweep, state_arrays(state, self.noise),
+                  {"fingerprint": self.fingerprint, "engine": self.engine})
+        self.walls["save_s"].append(time.perf_counter() - t0)
+
+
 def posterior_estimates(state: GibbsState, *, alpha: float, eta: float
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """(theta [D,K], phi_wk [V,K]) from averaged (or instantaneous)
@@ -505,6 +555,26 @@ def _chains_log_likelihood(theta, phi_wk, docs, words, mask):
         total = total + lp.sum(dim=-1)
         n = n + m.sum()
     return (total / torch.clamp_min(n, 1.0)).mean()
+
+
+def counts_log_likelihood(n_dk: torch.Tensor, n_wk: torch.Tensor,
+                          n_k: torch.Tensor, docs: torch.Tensor,
+                          words: torch.Tensor, mask: torch.Tensor, *,
+                          alpha: float, eta: float) -> float:
+    """Mean per-token log p(w|d) straight from raw counts (the
+    reference's `counts_log_likelihood`, `lda_gibbs.py:1040`): the
+    smoothing of `posterior_estimates` with n_k as φ's denominator, for
+    callers that hold (n_dk, n_wk, n_k) rather than accumulated sums.
+    Chained counts ([C, D, K], [C, V, K], [C, K]) give the mean over
+    chains of each chain's value, as `log_likelihood` does — the
+    sharded engine's boundary ll (`_chain_ll_local`)."""
+    ndk = n_dk.to(torch.float32)
+    nwk = n_wk.to(torch.float32)
+    theta = (ndk + alpha) / (ndk.sum(-1, keepdim=True)
+                             + ndk.shape[-1] * alpha)
+    phi = (nwk + eta) / (n_k.to(torch.float32)[..., None, :]
+                         + nwk.shape[-2] * eta)
+    return float(log_likelihood(theta, phi, docs, words, mask))
 
 
 class GibbsLDA:
@@ -614,30 +684,14 @@ class GibbsLDA:
         chains = cfg.n_chains
         if noise is None:
             noise = TorchNoise(cfg.seed, self.device, n_chains=chains)
-        walls = {"resumed_from": None, "load_s": None, "save_s": []}
+        book = None
+        state, start = None, 0
         if checkpoint_dir is not None:
-            fp = self.fingerprint(corpus.n_tokens, S)
-            checkpoint_dir = pathlib.Path(checkpoint_dir) / fp
-            if cfg.checkpoint_every > 0 and not hasattr(noise, "get_state"):
-                raise ValueError(
-                    "lda.checkpoint_every > 0 needs a noise source with "
-                    f"get_state(); {type(noise).__name__} has none")
-        state = None
-        start = 0
-        if checkpoint_dir is not None and resume:
-            t0 = time.perf_counter()
-            saved = ckpt.load_latest(checkpoint_dir)
-            if saved is not None and saved.meta.get("fingerprint") == fp:
-                if not hasattr(noise, "set_state"):
-                    raise ValueError(
-                        "resuming from a checkpoint needs a noise source "
-                        f"with set_state(); {type(noise).__name__} has "
-                        "none")
-                noise.set_state(saved.arrays["rng_state"])
-                state = state_from_arrays(saved.arrays, self.device)
-                start = saved.sweep + 1
-                walls.update(resumed_from=saved.sweep,
-                             load_s=time.perf_counter() - t0)
+            book = CheckpointBook(checkpoint_dir,
+                                  self.fingerprint(corpus.n_tokens, S),
+                                  noise, cfg.checkpoint_every, "gibbs")
+            if resume:
+                state, start = book.resume(self.device)
         if state is None:
             if chains == 1:
                 state = init_state(docs, words, mask, self.n_docs,
@@ -662,22 +716,17 @@ class GibbsLDA:
             ll = ll_of(st)
             return (st, ll0, ll) if with_initial_ll else (st, ll)
 
-        def save_fn(st, s):
-            t0 = time.perf_counter()
-            ckpt.save(checkpoint_dir, s, state_arrays(st, noise),
-                      {"fingerprint": fp, "engine": "gibbs"})
-            walls["save_s"].append(time.perf_counter() - t0)
-
         segments = plan_segments(
             start, n_sweeps, S,
             checkpoint_every=(cfg.checkpoint_every
-                              if checkpoint_dir is not None else 0),
+                              if book is not None else 0),
             fault_sweep=fault_inject_sweep,
             per_sweep=callback is not None)
         state, ll_history = run_fit_segments(
             state, start, segments, superstep_fn=superstep_fn,
             initial_ll_fn=ll_of, checkpoint_every=cfg.checkpoint_every,
-            checkpoint_dir=checkpoint_dir, save_fn=save_fn,
+            checkpoint_dir=None if book is None else book.dir,
+            save_fn=None if book is None else book.save,
             fault_sweep=fault_inject_sweep, notify=callback)
         theta, phi_wk = posterior_estimates(state, alpha=cfg.alpha,
                                             eta=cfg.eta)
@@ -687,6 +736,6 @@ class GibbsLDA:
             "phi_wk": phi_wk.cpu().numpy(),   # phi[k,v] = phi_wk[v,k]
             "ll_history": ll_history,
         }
-        if checkpoint_dir is not None:
-            out["checkpoint"] = walls
+        if book is not None:
+            out["checkpoint"] = book.walls
         return out

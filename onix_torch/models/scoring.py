@@ -7,6 +7,13 @@ strategies and their gates: a θ·φᵀ table plus a flat gather, a
 (doc, word) dedup, or a chunked gather-dot. θ·φᵀ is one `torch.matmul`
 in full f32 (the reference leaves it to XLA outside any Pallas kernel).
 
+The table scans of the scale run (`table_bottom_k`,
+`table_pair_bottom_k`), their bf16-screened forms and the `*_fast`
+dispatchers that choose between them and kernel K2 are the reference's
+XLA code outside any Pallas kernel, so they are torch ops here: a flat
+gather, the pair-min, the tol screen and a stable sort under the strict
+(score, index) order.
+
 Multi-chain estimates (θ [C, D, K], φ_wk [C, V, K] from
 `lda.n_chains > 1`) combine per-chain probabilities by a geometric mean,
 exp(mean_c log max(p_c, 1e-38)), as the reference does: an event must
@@ -19,6 +26,7 @@ reference to a few ulps, not bit for bit.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -265,3 +273,244 @@ def doc_rarity(theta: torch.Tensor, doc_weights: torch.Tensor
     if theta.ndim == 2:
         return one(theta)
     return torch.stack([one(th) for th in theta]).mean(dim=0)
+
+
+def _tol32(tol: float, device) -> torch.Tensor:
+    """`tol` rounded to f32 once, as the reference's weakly typed
+    comparison rounds it."""
+    return torch.tensor(tol, dtype=torch.float32, device=device)
+
+
+def _screen_tol(s: torch.Tensor, tol: float) -> torch.Tensor:
+    return torch.where(s < _tol32(tol, s.device), s,
+                       torch.full_like(s, float("inf")))
+
+
+def table_pair_bottom_k(table_flat: torch.Tensor, idx_src: torch.Tensor,
+                        idx_dst: torch.Tensor, *, tol: float,
+                        max_results: int) -> TopK:
+    """Flow events scored and selected on the device: per event the min
+    of its src-doc and dst-doc gathers from the θ·φᵀ table
+    (`score_table(...).reshape(-1)`), screened by tol, bottom-M under
+    the (score, index) order; int32 indices, -1 and +inf past the
+    qualifying events (the reference's `table_pair_bottom_k`)."""
+    if idx_src.shape[0] == 0:
+        return _empty_topk(max_results, table_flat.device)
+    s = torch.minimum(table_flat[idx_src.to(torch.int64)],
+                      table_flat[idx_dst.to(torch.int64)])
+    return select_bottom(_screen_tol(s, tol), max_results)
+
+
+def table_bottom_k(table_flat: torch.Tensor, idx: torch.Tensor, *,
+                   tol: float, max_results: int) -> TopK:
+    """`table_pair_bottom_k` for one token an event (dns/proxy): the
+    score is one flat gather."""
+    if idx.shape[0] == 0:
+        return _empty_topk(max_results, table_flat.device)
+    s = table_flat[idx.to(torch.int64)]
+    return select_bottom(_screen_tol(s, tol), max_results)
+
+
+# ---------------------------------------------------------------------------
+# bf16-screened exact selection (the reference's `scoring.py:332-533`)
+#
+# bf16 tables-at-rest halve the gather traffic of the selection scan (the
+# measured-fastest form on chip), but raw bf16 scores round at 2^-8 and can
+# flip the top-k set near the boundary — the bench's per-run identity gate
+# then rejects the speed. The screened variants below keep the bf16 scan as
+# a SCREEN only: they retain an oversized candidate buffer by bf16 score,
+# rescore just those candidates with the f32 tables, and certify exactness
+# on device from the rounding bound.
+#
+# Soundness argument. Inputs are f32 probabilities in [0,1] rounded once to
+# bf16 (8 significand bits incl. the implicit one, unit roundoff u = 2^-8):
+# each factor carries relative error <= u/(1+u) < 2^-8, a product of two
+# <= (1+2^-8)^2 - 1 < 2^-6.99, and a nonnegative K-term sum accumulated in
+# f32 preserves the relative bound while adding < K*2^-23 of its own. So
+# for every event
+#   bf16_s in [f32_s/(1+REL), f32_s*(1+REL)]   with REL = 2^-6,
+# which leaves ~2x headroom over the 2^-6.99 product bound and absorbs the
+# f32-accumulation term for any plausible K (equality would need
+# K*2^-23 > 2^-6 - 2^-6.99, i.e. K > ~60k topics).
+# Let B_max be the WORST bf16 score retained in the candidate buffer and
+# s_k the k-th-best f32 score after rescoring. Any excluded event has
+# bf16_s >= B_max; if B_max > s_k*(1+REL) then its f32 score is
+#   f32_s >= bf16_s/(1+REL) >= B_max/(1+REL) > s_k
+# — strictly worse than the k-th result, so the exclusion was safe (and
+# strictness rules out boundary ties with excluded events). If the buffer
+# never filled, every event passing the inflated tol screen is IN it, which
+# covers every event with f32_s < tol outright. Either condition => the
+# returned top-k equals the full-f32 scan's, including its
+# lower-global-index tie rule (candidates are ordered by (score, index)).
+# When neither holds the `sound` flag is False and the caller must fall
+# back to the f32 path — never silently accept the screened result.
+#
+# Identity strength. The table_* screened variants rescore by gathering
+# the SAME f32 table the exact scan gathers, so sound=True certifies a
+# bit-identical result. `top_suspicious_screened` rescores with
+# `score_events_in_order`, the sum `top_suspicious` runs, so it too is
+# bit-identical to the port's exact scan (and within the few ulps of the
+# reference's gather-dot that `top_suspicious` is).
+#
+# The bf16 copies come from `.to(torch.bfloat16)`, which rounds to
+# nearest even as the reference's `astype` does; the screen keeps the
+# bottom M*buffer_mult by bf16 score, ties to the lower index, so its
+# worst kept score, and with it `sound`, is the reference's.
+# ---------------------------------------------------------------------------
+
+_SCREEN_REL = 2.0 ** -6
+
+
+class ScreenedTopK(NamedTuple):
+    result: TopK
+    sound: torch.Tensor  # bool [] — True: provably identical to the f32 scan
+
+
+def _screened_scan(screen_scores: torch.Tensor, rescore, *, tol: float,
+                   max_results: int, buffer_mult: int) -> ScreenedTopK:
+    """Keep the bottom-(M*buffer_mult) of the bf16 `screen_scores` (with
+    its rejects already +inf, under the inflated tol
+    tol*(1+2*REL)), rescore the buffer in f32 with `rescore(indices)`,
+    and prove exactness (see the block comment above)."""
+    device = screen_scores.device
+    if screen_scores.shape[0] == 0:
+        return ScreenedTopK(_empty_topk(max_results, device),
+                            torch.ones((), dtype=torch.bool, device=device))
+    screen = select_bottom(screen_scores, max_results * buffer_mult)
+    gidx = screen.indices.to(torch.int64)
+    s32 = rescore(gidx.clamp_min(0))
+    s32 = torch.where((gidx >= 0) & (s32 < _tol32(tol, device)), s32,
+                      torch.full_like(s32, float("inf")))
+    # (score, global index) ascending, the f32 scan's order: a stable
+    # sort by index, then a stable sort by score.
+    by_idx = torch.sort(gidx, stable=True).indices
+    order = by_idx[torch.sort(s32[by_idx], stable=True).indices]
+    s_fin = s32[order][:max_results]
+    i_fin = torch.where(torch.isfinite(s_fin),
+                        screen.indices[order][:max_results],
+                        torch.full_like(screen.indices[:max_results], -1))
+    worst_kept = screen.scores[-1]
+    buffer_full = torch.isfinite(worst_kept)
+    s_k = s_fin[-1]
+    margin_ok = torch.isfinite(s_k) & (worst_kept > s_k * (1.0 + _SCREEN_REL))
+    return ScreenedTopK(TopK(s_fin, i_fin), ~buffer_full | margin_ok)
+
+
+def _screen_tol_bf16(s: torch.Tensor, tol: float) -> torch.Tensor:
+    return _screen_tol(s, tol * (1.0 + 2.0 * _SCREEN_REL))
+
+
+def top_suspicious_screened(theta, phi_wk, doc_ids, word_ids, mask, *,
+                            tol: float, max_results: int,
+                            buffer_mult: int = 4) -> ScreenedTopK:
+    """`top_suspicious` with a bf16 screen: the screen scores come from
+    bf16 copies of θ and φ_wk (products and sums in f32), the f32 tables
+    rescore only the ~M*buffer_mult survivors. `result` is valid only
+    when `sound` is True; otherwise run `top_suspicious`."""
+    if theta.ndim != 2:
+        raise ValueError("screened selection covers single-estimate "
+                         "tables; combine chains upstream")
+    if doc_ids.shape[0] == 0:
+        return _screened_scan(torch.zeros(0, device=doc_ids.device), None,
+                              tol=tol, max_results=max_results,
+                              buffer_mult=buffer_mult)
+    s_b = score_events_in_order(theta.to(torch.bfloat16).to(torch.float32),
+                                phi_wk.to(torch.bfloat16).to(torch.float32),
+                                doc_ids, word_ids)
+    s_b = torch.where(mask > 0, s_b, torch.full_like(s_b, float("inf")))
+
+    def rescore(gidx):
+        return score_events_in_order(theta, phi_wk, doc_ids[gidx],
+                                     word_ids[gidx])
+    return _screened_scan(_screen_tol_bf16(s_b, tol), rescore, tol=tol,
+                          max_results=max_results, buffer_mult=buffer_mult)
+
+
+def table_bottom_k_screened(table_flat: torch.Tensor, idx: torch.Tensor,
+                            table_bf16: torch.Tensor | None = None, *,
+                            tol: float, max_results: int,
+                            buffer_mult: int = 4) -> ScreenedTopK:
+    """`table_bottom_k` with a bf16 screen: the scan gathers a bf16 copy
+    of the score table, the f32 table rescores the candidate buffer.
+    Callers that scan many batches build `table_bf16 =
+    table_flat.to(torch.bfloat16)` once and pass it in."""
+    table_b = (table_flat.to(torch.bfloat16) if table_bf16 is None
+               else table_bf16)
+    i64 = idx.to(torch.int64)
+    s_b = table_b[i64].to(torch.float32)
+
+    def rescore(gidx):
+        return table_flat[i64[gidx]]
+    return _screened_scan(_screen_tol_bf16(s_b, tol), rescore, tol=tol,
+                          max_results=max_results, buffer_mult=buffer_mult)
+
+
+def table_pair_bottom_k_screened(table_flat: torch.Tensor,
+                                 idx_src: torch.Tensor,
+                                 idx_dst: torch.Tensor,
+                                 table_bf16: torch.Tensor | None = None, *,
+                                 tol: float, max_results: int,
+                                 buffer_mult: int = 4) -> ScreenedTopK:
+    """`table_pair_bottom_k` with a bf16 screen. The min of two
+    once-rounded values stays within the same relative bound as one
+    rounded value, so the shared REL covers the pair-min too."""
+    table_b = (table_flat.to(torch.bfloat16) if table_bf16 is None
+               else table_bf16)
+    si, di = idx_src.to(torch.int64), idx_dst.to(torch.int64)
+    s_b = torch.minimum(table_b[si], table_b[di]).to(torch.float32)
+
+    def rescore(gidx):
+        return torch.minimum(table_flat[si[gidx]], table_flat[di[gidx]])
+    return _screened_scan(_screen_tol_bf16(s_b, tol), rescore, tol=tol,
+                          max_results=max_results, buffer_mult=buffer_mult)
+
+
+def _screened_enabled() -> bool:
+    """Whether the `*_fast` dispatchers try the bf16 screen first. The
+    reference defaults it on only on a TPU, where it was measured the
+    fastest certified form; no card measurement exists, so the default
+    is off on "cuda" and on "cpu". ONIX_SCREENED_SELECT=1 turns it on;
+    any other value turns it off."""
+    return os.environ.get("ONIX_SCREENED_SELECT") == "1"
+
+
+def table_bottom_k_fast(table_flat, idx, table_bf16=None, *, tol: float,
+                        max_results: int, serve_form: str = "auto") -> TopK:
+    """Drop-in `table_bottom_k`: kernel K2 when the serve gate resolves
+    "fused" (`fused_serve.select_serve_form`: "auto" resolves "xla" on
+    every device until a measured crossover lands; ONIX_SERVE_FORM
+    overrides), else the bf16-screened scan when enabled
+    (`_screened_enabled`), falling back to the f32 scan whenever the
+    screen does not certify its result; the f32 scan otherwise. Every
+    arm returns the f32 scan's winners and scores."""
+    from onix_torch.models import fused_serve
+    if fused_serve.select_serve_form(serve_form, idx.shape[0],
+                                     table_flat.device) == "fused":
+        return fused_serve.fused_table_bottom_k(
+            table_flat, idx, tol=tol, max_results=max_results)
+    if _screened_enabled():
+        scr = table_bottom_k_screened(table_flat, idx, table_bf16, tol=tol,
+                                      max_results=max_results)
+        if bool(scr.sound):
+            return scr.result
+    return table_bottom_k(table_flat, idx, tol=tol, max_results=max_results)
+
+
+def table_pair_bottom_k_fast(table_flat, idx_src, idx_dst, table_bf16=None,
+                             *, tol: float, max_results: int,
+                             serve_form: str = "auto") -> TopK:
+    """Drop-in `table_pair_bottom_k` with the gates and fallback of
+    `table_bottom_k_fast`."""
+    from onix_torch.models import fused_serve
+    if fused_serve.select_serve_form(serve_form, idx_src.shape[0],
+                                     table_flat.device) == "fused":
+        return fused_serve.fused_table_pair_bottom_k(
+            table_flat, idx_src, idx_dst, tol=tol, max_results=max_results)
+    if _screened_enabled():
+        scr = table_pair_bottom_k_screened(table_flat, idx_src, idx_dst,
+                                           table_bf16, tol=tol,
+                                           max_results=max_results)
+        if bool(scr.sound):
+            return scr.result
+    return table_pair_bottom_k(table_flat, idx_src, idx_dst, tol=tol,
+                               max_results=max_results)

@@ -237,18 +237,21 @@ def _single_token_layout(bundle: CorpusBundle, n_events: int) -> bool:
 
 def select_suspicious_events(bundle: CorpusBundle, theta, phi_wk,
                              n_events: int, *, tol: float,
-                             max_results: int, device="cuda"):
+                             max_results: int, serve_form: str = "auto",
+                             device="cuda"):
     """Score every event and select the bottom-`max_results` under
     `tol`, returning a scoring.TopK of EVENT indices.
 
     Chained θ [C, D, K] / φ_wk [C, V, K] score by the geometric mean
     over chains. When the θ·φᵀ table fits the budget and the corpus has
-    the flow
-    [src|dst] (or the single-token) layout, events are scored by flat
-    gathers from the table on the device (pair-min for flow);
-    otherwise through token scoring and the host pair-min. Either way
-    the selection is `scoring.bottom_k`: ascending score, the lower
-    event index first at equal scores — the reference's order."""
+    the flow [src|dst] (or the single-token) layout, the table scan runs
+    on the device through `scoring.table_pair_bottom_k_fast`
+    (`table_bottom_k_fast`) with int32 flat indices, so `serve_form`
+    and ONIX_SERVE_FORM route it to kernel K2 and
+    ONIX_SCREENED_SELECT to the bf16 screen; otherwise through token
+    scoring, the host pair-min and `scoring.bottom_k`. Every path
+    selects under the reference's order: ascending score, the lower
+    event index first at equal scores."""
     dev = resolve_device(device)
     theta_t = scoring.as_device_tensor(theta, dev)
     phi_t = scoring.as_device_tensor(phi_wk, dev)
@@ -263,12 +266,17 @@ def select_suspicious_events(bundle: CorpusBundle, theta, phi_wk,
         table = scoring.score_table(theta_t, phi_t).reshape(-1)
         d = corpus.doc_ids[:n_real]
         w = corpus.word_ids[:n_real]
-        idx = torch.from_numpy(d.astype(np.int64) * n_vocab + w).to(dev)
+        idx = d.astype(np.int64) * n_vocab + w
+
+        def ids(a):
+            return torch.from_numpy(a.astype(np.int32)).to(dev)
         if single:
-            ev = table[idx]
-        else:
-            ev = torch.minimum(table[idx[:n_events]], table[idx[n_events:]])
-        return scoring.bottom_k(ev, tol=tol, max_results=max_results)
+            return scoring.table_bottom_k_fast(
+                table, ids(idx), tol=tol, max_results=max_results,
+                serve_form=serve_form)
+        return scoring.table_pair_bottom_k_fast(
+            table, ids(idx[:n_events]), ids(idx[n_events:]), tol=tol,
+            max_results=max_results, serve_form=serve_form)
     tok = scoring.score_all(theta, phi_wk, corpus.doc_ids[:n_real],
                             corpus.word_ids[:n_real], device=dev)
     ev = event_scores(bundle, tok, n_events).astype(np.float32)

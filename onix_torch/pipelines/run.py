@@ -4,9 +4,11 @@
 Read the day's partition from the store, create words, build the corpus
 (applying analyst feedback ×DUPFACTOR), fit the collapsed-Gibbs LDA on
 the device, score every raw event, and write the per-day results CSV,
-the clients CSV and a run manifest. The files keep the reference's
-schema; the manifest adds `device` (the torch device and card name)
-and `kernel_launches` (K1 launches during the fit), and with
+the clients CSV and a run manifest. `engine="sharded"` fits with the
+sharded engine on a 1×1 mesh (`parallel/sharded_gibbs.py`). The files
+keep the reference's schema; the manifest adds `device` (the torch
+device and card name) and `kernel_launches` (K1 launches during the
+fit), and with
 `lda.checkpoint_every > 0` also `checkpoint` (the sweep the fit resumed
 from and the walls of the load and of each save).
 
@@ -68,9 +70,10 @@ def load_feedback(cfg: OnixConfig, datatype: str, date: str) -> pd.DataFrame | N
 def fit_engine(cfg: OnixConfig, bundle: CorpusBundle, engine: str,
                device: torch.device) -> dict:
     """Fit theta/phi_wk with the requested engine on the bundle's
-    corpus. The port runs the "gibbs" engine, with any `lda.n_chains`
-    (θ [C, D, K] and φ_wk [C, V, K] for C > 1); "svi" and "sharded"
-    raise NotImplementedError."""
+    corpus: "gibbs" (`GibbsLDA`) or "sharded" (`ShardedGibbsLDA` on the
+    mesh of `cfg.mesh`, which must be 1×1), each with any
+    `lda.n_chains` (θ [C, D, K] and φ_wk [C, V, K] for C > 1); "svi"
+    raises NotImplementedError."""
     if engine not in ("gibbs", "sharded") and cfg.lda.n_chains > 1:
         raise ValueError(
             f"lda.n_chains={cfg.lda.n_chains} is only implemented for the "
@@ -78,12 +81,8 @@ def fit_engine(cfg: OnixConfig, bundle: CorpusBundle, engine: str,
             "silently run one chain")
     if engine == "svi":
         raise not_ported("the svi engine", "slice 3 (streaming and scale)")
-    if engine == "sharded":
-        raise not_ported("the sharded engine",
-                         "slice 5 (multiple devices and hosts)")
-    if engine != "gibbs":
+    if engine not in ("gibbs", "sharded"):
         raise ValueError(f"unknown engine {engine!r}")
-    from onix_torch.models.lda_gibbs import GibbsLDA
     corpus = bundle.corpus
     # Resume-on-preemption: per-(datatype, date) checkpoint dir, active
     # when the config asks for it.
@@ -91,7 +90,20 @@ def fit_engine(cfg: OnixConfig, bundle: CorpusBundle, engine: str,
     if cfg.lda.checkpoint_every > 0:
         ck_dir = (pathlib.Path(cfg.store.checkpoint_dir)
                   / cfg.pipeline.datatype / cfg.pipeline.date.replace("-", ""))
-    model = GibbsLDA(cfg.lda, corpus.n_docs, corpus.n_vocab, device=device)
+    if engine == "sharded":
+        from onix_torch.parallel.mesh import make_mesh, multihost_init
+        from onix_torch.parallel.sharded_gibbs import ShardedGibbsLDA
+        multihost_init(
+            coordinator=cfg.mesh.coordinator or None,
+            num_processes=cfg.mesh.num_processes or None,
+            process_id=(cfg.mesh.process_id
+                        if cfg.mesh.process_id >= 0 else None))
+        mesh = make_mesh(dp=cfg.mesh.dp, mp=cfg.mesh.mp, device=device)
+        model = ShardedGibbsLDA(cfg.lda, corpus.n_vocab, mesh=mesh)
+    else:
+        from onix_torch.models.lda_gibbs import GibbsLDA
+        model = GibbsLDA(cfg.lda, corpus.n_docs, corpus.n_vocab,
+                         device=device)
     fit = model.fit(corpus, checkpoint_dir=ck_dir)
     return {key: fit[key] for key in
             ("theta", "phi_wk", "ll_history", "checkpoint") if key in fit}

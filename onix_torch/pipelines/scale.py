@@ -1,0 +1,616 @@
+"""The scale day: a full synthetic telemetry day end to end at 10⁷–10⁸
+events on one card — the port of `onix/pipelines/scale.py` (its path
+that does not stream through device word creation).
+
+BASELINE.json configs[3] is "1B-row synthetic netflow, 20 topics,
+multi-chip doc-sharded Gibbs"; configs[1]/[2] are the DNS and proxy
+paths, run here at the same scale (`datatype=`). The run goes through
+the production stages: columnar synthesis (`SYNTH_ARRAYS`) → packed
+word creation (`*_words_from_arrays`) → integer corpus build
+(`build_corpus`) → the sharded engine on a 1×1 mesh (`ShardedGibbsLDA`,
+kernel K1 for every block step) → the table scan and bottom-k
+(`select_suspicious_events`, the `*_fast` dispatchers; kernel K2 when
+the serve gate resolves "fused"), with per-stage walls in a manifest.
+
+    python -m onix_torch.pipelines.scale --events 100000000 \\
+        [--datatype flow|dns|proxy] [--chains C] [--train-events T] \\
+        [--resume-dir D] [--merge-form sync|async] [--out F] \\
+        [--device cuda|cpu]
+
+With `train_events < n_events` the model is fitted on the first
+`train_events` events and every event of the day is then scored in
+chunks of that size. The reference builds those chunks' words on the
+device by default (`device_words.py`, item 14 of ROADMAP.md, not in the
+port yet, so that arm raises); `ONIX_HOST_WORDS=1` selects its host
+arm, which the port runs. A run of several fit processes
+(`fit_hosts > 1`) raises for slice 5, the independent session generator
+(`generator="sessions"`) for item 21.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pathlib
+import time
+
+import numpy as np
+import torch
+
+from onix_torch import not_ported
+from onix_torch.config import LDAConfig
+from onix_torch.device import describe, resolve_device
+from onix_torch.models import fused_serve, sample_count, scoring
+from onix_torch.models.lda_gibbs import SUPERSTEP_DEFAULT, merge_fingerprint
+from onix_torch.parallel.mesh import make_mesh
+from onix_torch.parallel.sharded_gibbs import ShardedGibbsLDA
+from onix_torch.pipelines.corpus_build import (build_corpus,
+                                               select_suspicious_events)
+from onix_torch.pipelines.synth import SYNTH_ARRAYS
+from onix_torch.pipelines.words import (dns_words_from_arrays,
+                                        flow_words_from_arrays,
+                                        proxy_words_from_arrays)
+from onix_torch.utils.obs import counters
+
+_FLOW_COLS = ("sip_u32", "dip_u32", "sport", "dport", "proto_id", "hour",
+              "ibyt", "ipkt")
+_DNS_COLS = ("client_u32", "qname_codes", "qnames", "qtype", "rcode",
+             "frame_len", "hour")
+_PROXY_COLS = ("client_u32", "uri_codes", "uris", "host_codes", "hosts",
+               "ua_codes", "agents", "respcode", "hour")
+
+
+def host_words_forced() -> bool:
+    """True when the env pins HOST word creation. Device-resident
+    word creation is the default hot path in the scale and streaming
+    pipelines; `ONIX_HOST_WORDS=1` (or the legacy spelling
+    `ONIX_DEVICE_WORDS=0`) selects the host reference implementation —
+    kept as the cross-check arm the device-vs-host parity tests and
+    artifacts compare against."""
+    return (os.environ.get("ONIX_HOST_WORDS") == "1"
+            or os.environ.get("ONIX_DEVICE_WORDS") == "0")
+
+
+def _words_from_cols(datatype: str, cols: dict, edges: dict | None = None):
+    """Columnar word creation for any datatype — always the
+    *_words_from_arrays production path (zero per-row Python)."""
+    if datatype == "flow":
+        return flow_words_from_arrays(
+            **{k: cols[k] for k in _FLOW_COLS},
+            proto_classes=cols["proto_classes"], edges=edges)
+    if datatype == "dns":
+        return dns_words_from_arrays(
+            **{k: cols[k] for k in _DNS_COLS}, edges=edges)
+    if datatype == "proxy":
+        return proxy_words_from_arrays(
+            **{k: cols[k] for k in _PROXY_COLS}, edges=edges)
+    raise ValueError(f"unknown datatype {datatype!r}")
+
+
+def run_scale(n_events: int, n_hosts: int | None = None,
+              n_anomalies: int | None = None, n_sweeps: int = 20,
+              n_topics: int = 20, max_results: int = 3000, seed: int = 0,
+              train_events: int | None = None, datatype: str = "flow",
+              n_chains: int = 1, resume_dir: str | None = None,
+              generator: str = "mixture", merge_form: str = "sync",
+              merge_staleness: int = 1, fit_hosts: int = 1,
+              rebalance: bool = False,
+              out_path: str | pathlib.Path | None = None,
+              device="cuda") -> dict:
+    """End-to-end scale run on `device` (the card by default; raises
+    without one); returns (and optionally writes) the manifest.
+
+    With `train_events < n_events` (and ONIX_HOST_WORDS=1) the model is
+    fitted on the first `train_events` events, then EVERY event of the
+    day is scored in train_events-sized chunks. Events whose word or
+    document never occurred in the training window score at prior
+    rarity (an unseen word is rarer than the rarest seen word; an
+    unseen document gets the uniform α-prior mixture) — the suspicious
+    direction, which is the correct failure mode for novel behavior.
+
+    The manifest is the reference's, with `devices` naming the torch
+    device, and adds `device` (its name), `kernel_launches` (K1 and K2
+    launches during the run) and `fit_walls_seconds` (the split of
+    gibbs_fit, `ShardedGibbsLDA.fit`'s "walls")."""
+    dev = resolve_device(device)
+    if not train_events:          # None or 0: train on everything
+        train_events = n_events
+    train_events = min(train_events, n_events)
+    if fit_hosts > 1:
+        raise not_ported(f"a fit over {fit_hosts} host processes "
+                         "(fit_hosts > 1)",
+                         "slice 5 (multiple devices and hosts)")
+    if rebalance:
+        # The reference reads it only in the host fabric of fit_hosts > 1,
+        # so a port run that took it would ignore it.
+        raise not_ported("the host fabric's rebalance on a host's death "
+                         "(rebalance=True)",
+                         "slice 5 (multiple devices and hosts)")
+    if generator == "sessions":
+        raise not_ported("the scale run's generator='sessions'",
+                         "item 21 (the copy of pipelines/synth2.py)")
+    if generator != "mixture":
+        # A typo'd generator silently producing MIXTURE data would
+        # stamp independent-witness claims on evidence that isn't.
+        raise ValueError(f"unknown generator {generator!r}; "
+                         "expected 'mixture' or 'sessions'")
+    if train_events < n_events and not host_words_forced():
+        raise not_ported(
+            "the scale run's device word creation for the streamed chunks "
+            "(train_events < n_events without ONIX_HOST_WORDS=1)",
+            "item 14 (pipelines/device_words.py)")
+    if n_hosts is None:
+        n_hosts = max(120, min(200_000, n_events // 500))
+    if n_anomalies is None:
+        n_anomalies = _default_anomalies(train_events)
+    walls: dict[str, float] = {}
+    launches0 = (sample_count.launches, fused_serve.launches)
+    t_all = time.monotonic()
+    ckpt = None
+    prior_elapsed = 0.0
+    resumed_sessions = 0
+    if resume_dir is not None:
+        ckpt = _ResumeState(resume_dir, {
+            "n_events": n_events, "train_events": train_events,
+            "n_hosts": n_hosts, "n_anomalies": n_anomalies,
+            "n_sweeps": n_sweeps, "n_topics": n_topics, "seed": seed,
+            "datatype": datatype, "n_chains": n_chains,
+            "max_results": max_results, "generator": generator,
+            "words_mode": "host" if host_words_forced() else "device",
+            # A single-process fit and a multi-host fabric fit are
+            # different models, so crossing fit_hosts starts clean.
+            "fit_hosts": fit_hosts,
+            # The merge arm's identity rule, shared with the fit
+            # checkpoint, so the two never disagree on "same run".
+            **merge_fingerprint(merge_form, merge_staleness),
+        })
+        meta = ckpt.load("meta")
+        if meta is not None:
+            prior_elapsed = float(meta["elapsed"])
+            resumed_sessions = int(meta["sessions"])
+
+    t = time.monotonic()
+    cols = SYNTH_ARRAYS[datatype](train_events, n_hosts=n_hosts,
+                                  n_anomalies=n_anomalies, seed=seed)
+    walls["synthesize"] = time.monotonic() - t
+
+    t = time.monotonic()
+    wt = _words_from_cols(datatype, cols)
+    walls["word_creation"] = time.monotonic() - t
+
+    t = time.monotonic()
+    bundle = build_corpus(wt)
+    corpus = bundle.corpus
+    walls["corpus_build"] = time.monotonic() - t
+
+    t = time.monotonic()
+    # n_chains > 1: the judged restart-ensemble estimator on the sharded
+    # engine (the scan geometric-merges the chains in score_table).
+    cfg = LDAConfig(n_topics=n_topics, n_sweeps=n_sweeps,
+                    burn_in=max(1, n_sweeps // 2),
+                    block_size=1 << 17, seed=seed, n_chains=n_chains,
+                    merge_form=merge_form, merge_staleness=merge_staleness,
+                    # With a resume_dir, checkpoint at every superstep
+                    # boundary so a session that dies mid-fit resumes
+                    # at the last completed superstep.
+                    checkpoint_every=(SUPERSTEP_DEFAULT
+                                      if resume_dir is not None else 0))
+    fit_ckpt_dir = (pathlib.Path(resume_dir) / "fit_ckpt"
+                    if resume_dir is not None else None)
+    mesh = make_mesh(dp=1, mp=1, device=dev)
+    model = ShardedGibbsLDA(cfg, corpus.n_vocab, mesh=mesh)
+    saved_model = ckpt.load("model") if ckpt is not None else None
+    fit_walls = None
+    if saved_model is not None:
+        # A prior session already paid for the fit; walls carry ITS
+        # cost, not this session's load time.
+        theta = saved_model["theta"]
+        phi_wk = saved_model["phi_wk"]
+        walls["gibbs_fit"] = float(saved_model["wall"])
+    else:
+        fit = model.fit(corpus, checkpoint_dir=fit_ckpt_dir)
+        theta, phi_wk = fit["theta"], fit["phi_wk"]  # host numpy: synced
+        walls["gibbs_fit"] = time.monotonic() - t
+        fit_walls = fit["walls"]
+        if ckpt is not None:
+            ckpt.save("model", theta=np.asarray(theta),
+                      phi_wk=np.asarray(phi_wk),
+                      wall=np.float64(walls["gibbs_fit"]))
+            ckpt.save("meta", elapsed=np.float64(
+                prior_elapsed + time.monotonic() - t_all),
+                sessions=np.int64(resumed_sessions + 1))
+
+    planted = set(cols["anomaly_idx"].tolist())
+    stream_info: dict = {}
+    t = time.monotonic()
+    if train_events >= n_events:
+        # Table scan -> pair-min -> bottom-k on the device; only the
+        # winners come back. Words were built on the host for training.
+        stream_info["words_mode"] = "host"
+        top = select_suspicious_events(bundle, theta, phi_wk, n_events,
+                                       tol=1.0, max_results=max_results,
+                                       device=dev)
+        top_idx = top.indices.cpu().numpy()
+        top_scores = top.scores.cpu().numpy()
+        walls["score_select"] = time.monotonic() - t
+    else:
+        del cols
+
+        def _save_meta():
+            if ckpt is not None:
+                ckpt.save("meta", elapsed=np.float64(
+                    prior_elapsed + time.monotonic() - t_all),
+                    sessions=np.int64(resumed_sessions + 1))
+
+        top_idx, top_scores = _stream_score(
+            bundle, wt.edges, theta, phi_wk, n_events=n_events,
+            chunk_events=train_events, n_hosts=n_hosts, seed=seed,
+            max_results=max_results, planted=planted, walls=walls,
+            datatype=datatype, info=stream_info, ckpt=ckpt,
+            save_meta=_save_meta, device=dev)
+
+    if resumed_sessions:
+        # Resumed runs replay the deterministic host stages, so raw
+        # elapsed double-counts them; the single-run-equivalent total
+        # counts each stage's wall once.
+        walls["wall_all_sessions"] = round(
+            prior_elapsed + time.monotonic() - t_all, 2)
+        walls["total"] = sum(
+            walls.get(k, 0.0) for k in
+            ("synthesize", "word_creation", "corpus_build", "gibbs_fit",
+             "score_select", "stream_synth", "stream_words_map",
+             "stream_score"))
+    else:
+        walls["total"] = time.monotonic() - t_all
+    # The pipeline rate excludes generating the benchmark's own input:
+    # a deployment reads landed telemetry, it does not synthesize it.
+    gen_wall = walls["synthesize"] + walls.get("stream_synth", 0.0)
+    walls["generation_total"] = round(gen_wall, 2)
+    pipeline_wall = max(walls["total"] - gen_wall, 1e-9)
+    hits = len(planted & set(top_idx[top_idx >= 0].tolist()))
+    finite = top_scores[np.isfinite(top_scores)]
+    cfg_of = {"flow": "configs[3] (synthetic flow day)",
+              "dns": "configs[1] at scale (synthetic dns day)",
+              "proxy": "configs[2] at scale (synthetic proxy day)"}
+    manifest = {
+        "config": f"BASELINE {cfg_of[datatype]}",
+        "datatype": datatype,
+        "n_events": n_events,
+        "train_events": train_events,
+        "n_hosts": n_hosts,
+        "n_docs": int(corpus.n_docs),
+        "n_vocab": int(corpus.n_vocab),
+        "n_train_tokens": int(corpus.n_tokens),
+        "n_topics": n_topics,
+        "n_sweeps": n_sweeps,
+        "n_chains": n_chains,
+        "lda_superstep": cfg.superstep or SUPERSTEP_DEFAULT,
+        "dp1_fast_path": bool(model.dp1_fast),
+        "orchestration": {
+            "runner": "scale_sequential",
+            "overlap": False,
+            "overlap_depth": 0,
+            "merge_form": model.merge_form,
+            "merge_staleness": int(model.merge_tau),
+            "lda_superstep": cfg.superstep or SUPERSTEP_DEFAULT,
+            "dp1_fast_path": bool(model.dp1_fast),
+            "mesh": dict(mesh.shape),
+            "fit_hosts": fit_hosts,
+            "per_datatype_stage_walls_s": {
+                datatype: {k: round(v, 2) for k, v in walls.items()}},
+        },
+        "devices": mesh.devices,
+        "device": describe(dev),
+        "mesh": dict(mesh.shape),
+        "walls_seconds": {k: round(v, 2) for k, v in walls.items()},
+        # The fit's own split of gibbs_fit (absent when a prior
+        # session's model was loaded).
+        **({"fit_walls_seconds": {k: round(v, 2)
+                                  for k, v in fit_walls.items()}}
+           if fit_walls is not None else {}),
+        "events_per_second_end_to_end": round(n_events / walls["total"], 1),
+        "events_per_second_pipeline_only": round(n_events / pipeline_wall, 1),
+        "planted_anomalies": len(planted),
+        "planted_in_bottom_k": hits,
+        "selected_score_range": ([float(finite.min()), float(finite.max())]
+                                 if len(finite) else None),
+        "max_results": max_results,
+        "seed": seed,
+        "kernel_launches": {
+            "sample_count": sample_count.launches - launches0[0],
+            "fused_serve": fused_serve.launches - launches0[1]},
+        **({"resumed_sessions": resumed_sessions + 1}
+           if resumed_sessions else {}),
+        **stream_info,
+    }
+    # Resilience events this run tallied (retries, salvage skips,
+    # injected faults, checkpoint digest mismatches) — empty on a clean
+    # run.
+    resil = {**counters.snapshot("ingest"), **counters.snapshot("salvage"),
+             **counters.snapshot("faults"), **counters.snapshot("ckpt"),
+             **counters.snapshot("scale.resume_torn_discarded")}
+    if resil:
+        manifest["resilience"] = resil
+    if out_path is not None:
+        out_path = pathlib.Path(out_path)
+        out_path.parent.mkdir(parents=True, exist_ok=True)
+        out_path.write_text(json.dumps(manifest, indent=2) + "\n")
+    return manifest
+
+
+class _ResumeState:
+    """Stage/chunk checkpointing for scale runs (the reference's
+    `_ResumeState`). It persists only the SMALL state — the fitted model
+    (theta/phi) and each completed stream chunk's bottom-k winners —
+    because the big stages before the fit (synthesize → words → corpus)
+    are deterministic in `seed` and host-only: a resumed run replays
+    them, loads the model instead of re-fitting, and continues streaming
+    at the first chunk that never finished. Checkpoints are
+    fingerprinted over every argument that changes the numbers; a
+    mismatch starts clean rather than resuming somebody else's run."""
+
+    def __init__(self, resume_dir, fingerprint: dict):
+        self.dir = pathlib.Path(resume_dir)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.fp = json.dumps(fingerprint, sort_keys=True)
+        fp_file = self.dir / "fingerprint.json"
+        if fp_file.exists() and fp_file.read_text() != self.fp:
+            for p in self.dir.glob("*.npz"):
+                p.unlink()
+            fp_file.unlink()
+        self.fresh = not fp_file.exists()
+        if self.fresh:
+            fp_file.write_text(self.fp)
+
+    def _path(self, name: str) -> pathlib.Path:
+        return self.dir / f"{name}.npz"
+
+    def save(self, name: str, **arrays) -> None:
+        tmp = self._path(name).with_suffix(".tmp.npz")
+        np.savez(tmp, **arrays)
+        os.replace(tmp, self._path(name))
+
+    def load(self, name: str):
+        p = self._path(name)
+        if not p.exists():
+            return None
+        try:
+            return np.load(p, allow_pickle=False)
+        except Exception as e:          # torn write from a killed run
+            counters.inc("scale.resume_torn_discarded")
+            print(f"scale resume: discarding torn checkpoint {p} ({e!r})")
+            p.unlink()
+            return None
+
+
+def _default_anomalies(n_events: int) -> int:
+    """Sublinear in n: at 10^8+, a linear anomaly count concentrates
+    enough repeated signature words that the sampler gives the attack
+    its own topic and the events stop being low-probability (the
+    planted-anomaly contract assumes heterogeneity)."""
+    return max(30, min(1000, n_events // 10_000))
+
+
+def extend_model_for_unseen(theta, phi_wk):
+    """Extend (theta, phi) by one UNSEEN row each for scoring events
+    outside the training window: an unseen word scores at HALF the
+    rarest seen word's probability in every topic (strictly more
+    suspicious than anything seen), an unseen document at the uniform
+    prior mixture. Chained estimators ([C, D, K] / [C, V, K] from
+    n_chains > 1) extend every chain; score_table downstream combines
+    them with the geometric mean exactly as score_events does."""
+    theta = np.asarray(theta)
+    phi = np.asarray(phi_wk)
+    k = theta.shape[-1]
+    if theta.ndim == 2:
+        theta_x = np.concatenate(
+            [theta, np.full((1, k), 1.0 / k, np.float32)])
+        phi_x = np.concatenate([phi, phi.min(axis=0, keepdims=True) * 0.5])
+        return theta_x, phi_x
+    c = theta.shape[0]
+    theta_x = np.concatenate(
+        [theta, np.full((c, 1, k), 1.0 / k, np.float32)], axis=1)
+    phi_x = np.concatenate([phi, phi.min(axis=1, keepdims=True) * 0.5],
+                           axis=1)
+    return theta_x, phi_x
+
+
+def _stream_score(bundle, fitted_edges, theta, phi_wk, *, n_events: int,
+                  chunk_events: int, n_hosts: int, seed: int,
+                  max_results: int, planted: set, walls: dict,
+                  datatype: str = "flow", info: dict | None = None,
+                  ckpt=None, save_meta=None, device="cuda"):
+    """Score the FULL day in chunk_events-sized pieces against a model
+    fitted on chunk 0, with host word creation (the reference's
+    ONIX_HOST_WORDS=1 arm) and the `table_*_fast` scans on the device.
+
+    Vocabulary and document ids are extended by one UNSEEN row each
+    (`extend_model_for_unseen`). Per chunk only the top-k winners stay
+    on the host, so peak memory is one chunk's columns."""
+    info = {} if info is None else info
+    dev = resolve_device(device)
+    theta_x, phi_x = extend_model_for_unseen(theta, phi_wk)
+    d_x, v_x = theta_x.shape[-2], phi_x.shape[-2]
+    chains = theta_x.shape[0] if theta_x.ndim == 3 else 1
+    # Chain-aware budget (same form as score_all's gate): the geometric
+    # merge materializes a [C, D, V] per-chain array before reducing.
+    if chains * d_x * v_x > scoring.TABLE_MAX_ELEMS:
+        raise ValueError(
+            f"extended score table {chains}x{d_x}x{v_x} exceeds the "
+            f"device budget; lower n_hosts/n_chains or shard the table")
+    table = scoring.score_table(torch.from_numpy(theta_x).to(dev),
+                                torch.from_numpy(phi_x).to(dev)).reshape(-1)
+    # One bf16 copy for the whole stream — the screened scan would
+    # otherwise re-convert the table every batch.
+    table_b = (table.to(torch.bfloat16) if scoring._screened_enabled()
+               else None)
+
+    unseen_w = v_x - 1
+    unseen_d = d_x - 1
+    info["words_mode"] = "host"
+    # Streamed chunks plant a day-proportional share of anomalies, not
+    # a full day's worth per chunk, so planted_in_bottom_k is read
+    # against max_results rather than diluted by n_chunks x more planted
+    # events than result slots.
+    n_chunks = -(-n_events // chunk_events)
+    anomalies_per_chunk = max(1, _default_anomalies(n_events) // n_chunks)
+    all_scores: list[np.ndarray] = []
+    all_idx: list[np.ndarray] = []
+    # stream_synth times the generator alone; stream_words_map is the
+    # pipeline's work (word creation + trained-id mapping) and joins the
+    # pipeline-only rate.
+    walls.setdefault("stream_words_map", 0.0)
+    walls["stream_synth"] = 0.0
+    walls["stream_score"] = 0.0
+    offset = 0
+    c = 0
+    prog = ckpt.load("stream") if ckpt is not None else None
+    if prog is not None:
+        # Resume at the first chunk that never completed: restore the
+        # winners-so-far, the planted ids streamed chunks added, and
+        # the stream walls the prior sessions already paid.
+        c = int(prog["c"])
+        offset = min(c * chunk_events, n_events)
+        all_idx.append(prog["idx"].astype(np.int64))
+        all_scores.append(prog["scores"].astype(np.float32))
+        planted.update(prog["planted"].tolist())
+        for k in ("stream_synth", "stream_words_map", "stream_score"):
+            walls[k] += float(prog[f"wall_{k}"])
+        info["resumed_at_chunk"] = c
+
+    def _save_progress():
+        if ckpt is None:
+            return
+        ckpt.save(
+            "stream", c=np.int64(c),
+            idx=(np.concatenate(all_idx) if all_idx
+                 else np.zeros(0, np.int64)),
+            scores=(np.concatenate(all_scores) if all_scores
+                    else np.zeros(0, np.float32)),
+            planted=np.asarray(sorted(planted), np.int64),
+            **{f"wall_{k}": np.float64(walls[k]) for k in
+               ("stream_synth", "stream_words_map", "stream_score")})
+        if save_meta is not None:
+            save_meta()
+
+    def _host_idx(cols: dict) -> np.ndarray:
+        """Host mapping: word creation + searchsorted id maps into
+        the TRAINED id spaces; unknowns go to the UNSEEN rows."""
+        t0 = time.monotonic()
+        wt = _words_from_cols(datatype, cols, edges=fitted_edges)
+        wid = bundle.word_ids_packed(wt.word_key, fill=unseen_w)
+        did = bundle.doc_ids_u32(wt.ip_u32, fill=unseen_d)
+        out = did * np.int32(v_x) + wid
+        walls["stream_words_map"] += time.monotonic() - t0
+        return out
+
+    while offset < n_events:
+        m = min(chunk_events, n_events - offset)
+        if c == 0:
+            # Chunk 0 is the training window — its corpus is already
+            # mapped; reuse the integer ids directly. int32 throughout:
+            # the extended table is capped at 2^27 elements.
+            t = time.monotonic()
+            d_ids = bundle.corpus.doc_ids[:bundle.n_real_tokens]
+            w_ids = bundle.corpus.word_ids[:bundle.n_real_tokens]
+            idx = (d_ids.astype(np.int32) * np.int32(v_x)
+                   + w_ids.astype(np.int32))
+            walls["stream_words_map"] += time.monotonic() - t
+        else:
+            t0 = time.monotonic()
+            cols = SYNTH_ARRAYS[datatype](m, n_hosts=n_hosts,
+                                          n_anomalies=anomalies_per_chunk,
+                                          seed=seed + 1000 * c)
+            walls["stream_synth"] += time.monotonic() - t0
+            planted.update((cols["anomaly_idx"] + offset).tolist())
+            idx = _host_idx(cols)
+            del cols
+
+        t = time.monotonic()
+        ids = torch.from_numpy(np.ascontiguousarray(idx, np.int32)).to(dev)
+        if datatype == "flow":  # [src|dst] halves: the pair-min scan
+            top = scoring.table_pair_bottom_k_fast(
+                table, ids[:m], ids[m:], table_b, tol=1.0,
+                max_results=max_results)
+        else:                   # one client-IP token per event
+            top = scoring.table_bottom_k_fast(
+                table, ids, table_b, tol=1.0, max_results=max_results)
+        ti = top.indices.cpu().numpy()
+        ts = top.scores.cpu().numpy()
+        keep = ti >= 0
+        all_idx.append(ti[keep] + offset)
+        all_scores.append(ts[keep])
+        walls["stream_score"] += time.monotonic() - t
+        offset += m
+        c += 1
+        _save_progress()
+
+    scores = np.concatenate(all_scores)
+    idxs = np.concatenate(all_idx)
+    order = np.argsort(scores, kind="stable")[:max_results]
+    out_idx = np.full(max_results, -1, np.int64)
+    out_scores = np.full(max_results, np.inf, np.float32)
+    out_idx[:len(order)] = idxs[order]
+    out_scores[:len(order)] = scores[order]
+    return out_idx, out_scores
+
+
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="onix_torch scale run — end-to-end synthetic "
+                    "telemetry day on one device")
+    ap.add_argument("--datatype", choices=("flow", "dns", "proxy"),
+                    default="flow")
+    ap.add_argument("--events", type=float, default=1e8)
+    ap.add_argument("--hosts", type=int, default=None)
+    ap.add_argument("--sweeps", type=int, default=20)
+    ap.add_argument("--train-events", type=float, default=None,
+                    help="fit on this many events, score the rest in "
+                         "chunks (needs ONIX_HOST_WORDS=1; default: train "
+                         "on everything)")
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--chains", type=int, default=1,
+                    help="restart-ensemble chains on the sharded engine")
+    ap.add_argument("--generator", choices=("mixture", "sessions"),
+                    default="mixture",
+                    help="telemetry generator: the role-mixture synth "
+                         "(sessions: not in the port yet)")
+    ap.add_argument("--resume-dir", default=None,
+                    help="stage/chunk checkpoint dir: a run killed "
+                         "mid-way resumes from the last completed stage "
+                         "/ chunk instead of restarting")
+    ap.add_argument("--merge-form", choices=("sync", "async"),
+                    default="sync",
+                    help="sharded-engine count-merge arm; one device "
+                         "runs the synchronous math for both")
+    ap.add_argument("--merge-staleness", type=int, default=1,
+                    help="merge windows a peer delta may lag in the "
+                         "async arm")
+    ap.add_argument("--fit-hosts", type=int, default=1,
+                    help="fit worker processes (more than 1: not in the "
+                         "port yet)")
+    ap.add_argument("--rebalance", action="store_true",
+                    help="multi-host fabric only (not in the port yet)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the run goes (default: cuda; there is no "
+                         "fallback)")
+    args = ap.parse_args(argv)
+    m = run_scale(int(args.events), n_hosts=args.hosts,
+                  n_sweeps=args.sweeps, seed=args.seed,
+                  train_events=(None if args.train_events is None
+                                else int(args.train_events)),
+                  datatype=args.datatype, n_chains=args.chains,
+                  resume_dir=args.resume_dir, generator=args.generator,
+                  merge_form=args.merge_form,
+                  merge_staleness=args.merge_staleness,
+                  fit_hosts=args.fit_hosts, rebalance=args.rebalance,
+                  out_path=args.out, device=args.device)
+    print(json.dumps(m, indent=2))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -3,8 +3,9 @@
 The port's own copy of `synth_flow_day`, `synth_dns_day`,
 `synth_proxy_day`, their private helpers and the `SYNTH` table from
 `onix/pipelines/synth.py`, kept line for line so both packages make the
-same day from the same seed; the port imports nothing from `onix`. (The
-columnar `*_arrays` forms come with the streaming slice.)
+same day from the same seed; the port imports nothing from `onix`.
+The columnar days (`synth_*_day_arrays`, `FLOW_PROTO_CLASSES` and the
+`SYNTH_ARRAYS` table) are copied the same way, for the scale run.
 
 Background traffic is ROLE-STRUCTURED: each host draws a mixture over a
 small set of behavior profiles (web browsing, DNS-heavy, backup, mail,
@@ -141,6 +142,100 @@ def synth_flow_day(n_events: int = 20000, n_hosts: int = 120,
     return _shuffle(table, n_bg, n_events, rng)
 
 
+FLOW_PROTO_CLASSES = ["ICMP", "TCP", "UDP"]    # id table for numeric path
+
+
+def synth_flow_day_arrays(n_events: int, n_hosts: int = 100_000,
+                          n_anomalies: int | None = None, seed: int = 0,
+                          chunk: int = 10_000_000) -> dict:
+    """Columnar NUMERIC flow day for the 10⁸–10⁹-row configs
+    (BASELINE.json configs[3]): same role-mixture background and
+    exfil-shaped anomalies as `synth_flow_day`, but zero Python-object
+    columns — uint32 IPs, small-int ports/protocols, float hours —
+    generated in chunks so peak memory stays bounded.
+
+    Returns a dict of arrays (sip_u32, dip_u32, sport, dport, proto_id,
+    hour, ipkt, ibyt, anomaly_idx, proto_classes). Rows are NOT shuffled
+    (background first, anomalies last — `anomaly_idx` says where); the
+    Gibbs engine shuffles tokens itself and the corpus build is
+    order-insensitive.
+    """
+    if n_anomalies is None:
+        n_anomalies = max(30, n_events // 10_000)
+    # A tail chunk smaller than the anomaly floor must not make the
+    # background count negative.
+    n_anomalies = min(n_anomalies, n_events)
+    rng = np.random.default_rng(seed)
+    n_prof = len(_FLOW_PROFILES)
+    mix_cum = _host_mixture(rng, n_hosts, n_prof).cumsum(axis=1)
+    mix_cum = mix_cum.astype(np.float32)
+
+    proto_of = np.array([FLOW_PROTO_CLASSES.index(p[1])
+                         for p in _FLOW_PROFILES], np.int8)
+    dport_of = np.array([p[0] for p in _FLOW_PROFILES], np.int32)
+    peak_of = np.array([p[2] for p in _FLOW_PROFILES], np.float32)
+    hsd_of = np.array([p[3] for p in _FLOW_PROFILES], np.float32)
+    lpkt_of = np.array([p[4] for p in _FLOW_PROFILES], np.float32)
+    lbpp_of = np.array([p[5] for p in _FLOW_PROFILES], np.float32)
+    # 10.x.y.z host space; 192.168.p.i per-profile server pools.
+    host_base = np.uint32(10 << 24)
+    srv_base = np.uint32((192 << 24) | (168 << 16))
+
+    n_bg = n_events - n_anomalies
+    out = {
+        "sip_u32": np.empty(n_events, np.uint32),
+        "dip_u32": np.empty(n_events, np.uint32),
+        "sport": np.empty(n_events, np.int32),
+        "dport": np.empty(n_events, np.int32),
+        "proto_id": np.empty(n_events, np.int8),
+        "hour": np.empty(n_events, np.float32),
+        "ipkt": np.empty(n_events, np.int64),
+        "ibyt": np.empty(n_events, np.int64),
+    }
+    for lo in range(0, n_bg, chunk):
+        hi = min(lo + chunk, n_bg)
+        m = hi - lo
+        h_idx = rng.integers(0, n_hosts, m)
+        u = rng.random(m, np.float32)
+        prof = (mix_cum[h_idx] < u[:, None]).sum(axis=1)
+        prof = np.clip(prof, 0, n_prof - 1)
+        out["sip_u32"][lo:hi] = host_base + h_idx.astype(np.uint32)
+        out["dip_u32"][lo:hi] = (srv_base
+                                 + (prof.astype(np.uint32) << 8)
+                                 + rng.integers(1, 5, m).astype(np.uint32))
+        out["sport"][lo:hi] = rng.integers(1025, 65535, m)
+        out["dport"][lo:hi] = dport_of[prof]
+        out["proto_id"][lo:hi] = proto_of[prof]
+        out["hour"][lo:hi] = np.clip(
+            rng.normal(peak_of[prof], hsd_of[prof]), 0, 23.99)
+        ipkt = np.exp(rng.normal(lpkt_of[prof], 0.6)).astype(np.int64) + 1
+        bpp = np.exp(rng.normal(lbpp_of[prof], 0.3)).astype(np.int64) + 40
+        out["ipkt"][lo:hi] = ipkt
+        out["ibyt"][lo:hi] = ipkt * bpp
+
+    # Anomalies: exfil-shaped, each its own campaign spread across the
+    # bin grid — same recipe (and same rationale) as synth_flow_day.
+    a = slice(n_bg, n_events)
+    out["sip_u32"][a] = host_base + rng.integers(
+        0, n_hosts, n_anomalies).astype(np.uint32)
+    out["dip_u32"][a] = ((np.uint32(203 << 24))
+                         + (rng.integers(0, 16, n_anomalies) << 8).astype(np.uint32)
+                         + rng.integers(1, 255, n_anomalies).astype(np.uint32))
+    out["sport"][a] = rng.integers(1025, 65535, n_anomalies)
+    out["dport"][a] = rng.integers(31337, 65535, n_anomalies)
+    out["proto_id"][a] = np.where(rng.random(n_anomalies) < 0.25,
+                                  FLOW_PROTO_CLASSES.index("UDP"),
+                                  FLOW_PROTO_CLASSES.index("TCP")).astype(np.int8)
+    out["hour"][a] = rng.uniform(0, 24, n_anomalies) % 23.99
+    a_ipkt = np.exp(rng.uniform(0.3, 8.5, n_anomalies)).astype(np.int64) + 1
+    a_bpp = np.exp(rng.uniform(3.7, 7.2, n_anomalies)) + 40
+    out["ipkt"][a] = a_ipkt
+    out["ibyt"][a] = a_ipkt * a_bpp.astype(np.int64)
+    out["anomaly_idx"] = np.arange(n_bg, n_events, dtype=np.int64)
+    out["proto_classes"] = list(FLOW_PROTO_CLASSES)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # dns
 # ---------------------------------------------------------------------------
@@ -223,6 +318,86 @@ def _dga_names(rng: np.random.Generator, n: int) -> np.ndarray:
     return np.array(
         ["".join(rng.choice(alphabet, m)) + "." + tlds[rng.integers(0, 4)]
          for m in lens], dtype=object)
+
+
+def synth_dns_day_arrays(n_events: int, n_hosts: int = 100_000,
+                         n_anomalies: int | None = None, seed: int = 0,
+                         chunk: int = 10_000_000) -> dict:
+    """Columnar DNS day for the 10⁸-row configs[1] path: same
+    role-mixture background and DGA-shaped anomalies as `synth_dns_day`
+    but DICTIONARY-ENCODED — `qnames` is the unique name table (profile
+    pool + one DGA name per anomaly, tiny vs rows), `qname_codes` the
+    per-row index, everything else numeric. Rows are background-first,
+    anomalies last (`anomaly_idx` says where), matching
+    synth_flow_day_arrays' contract."""
+    if n_anomalies is None:
+        n_anomalies = max(30, n_events // 10_000)
+    n_anomalies = min(n_anomalies, n_events)
+    rng = np.random.default_rng(seed)
+    n_prof = len(_DNS_PROFILES)
+    mix_cum = _host_mixture(rng, n_hosts, n_prof).cumsum(axis=1).astype(np.float32)
+
+    # Flattened unique background name table: per profile, subs x doms.
+    names: list[str] = []
+    prof_name_lo = np.zeros(n_prof + 1, np.int64)
+    prof_qts: list[np.ndarray] = []
+    for p, (doms, subs, qts, _mu, _sd) in enumerate(_DNS_PROFILES):
+        for s in subs:
+            for d in doms:
+                names.append(f"{s}.{d}" if s else d)
+        prof_name_lo[p + 1] = len(names)
+        prof_qts.append(np.asarray(qts, np.int64))
+    peak_of = np.array([p[3] for p in _DNS_PROFILES], np.float32)
+    hsd_of = np.array([p[4] for p in _DNS_PROFILES], np.float32)
+    n_names_of = np.diff(prof_name_lo)
+    # Per-profile qtype pools ragged -> rectangular for vectorized draw.
+    qt_w = max(len(q) for q in prof_qts)
+    qt_table = np.stack([np.pad(q, (0, qt_w - len(q)), mode="edge")
+                         for q in prof_qts])
+    qt_n = np.array([len(q) for q in prof_qts], np.int64)
+
+    host_base = np.uint32(10 << 24)
+    n_bg = n_events - n_anomalies
+    out = {
+        "client_u32": np.empty(n_events, np.uint32),
+        "qname_codes": np.empty(n_events, np.int64),
+        "qtype": np.empty(n_events, np.int32),
+        "rcode": np.empty(n_events, np.int32),
+        "frame_len": np.empty(n_events, np.int32),
+        "hour": np.empty(n_events, np.float32),
+    }
+    uniq_len = np.fromiter((len(s) for s in names), np.int64, len(names))
+    for lo in range(0, n_bg, chunk):
+        hi = min(lo + chunk, n_bg)
+        m = hi - lo
+        h_idx = rng.integers(0, n_hosts, m)
+        u = rng.random(m, np.float32)
+        prof = np.clip((mix_cum[h_idx] < u[:, None]).sum(axis=1),
+                       0, n_prof - 1)
+        codes = prof_name_lo[prof] + rng.integers(0, n_names_of[prof])
+        out["client_u32"][lo:hi] = host_base + h_idx.astype(np.uint32)
+        out["qname_codes"][lo:hi] = codes
+        out["qtype"][lo:hi] = qt_table[prof, rng.integers(0, qt_n[prof])]
+        out["rcode"][lo:hi] = 0
+        out["frame_len"][lo:hi] = (80 + 1.2 * uniq_len[codes]
+                                   + rng.integers(0, 12, m)).astype(np.int32)
+        out["hour"][lo:hi] = np.clip(
+            rng.normal(peak_of[prof], hsd_of[prof]), 0, 23.99)
+
+    a = slice(n_bg, n_events)
+    a_names = _dga_names(rng, n_anomalies)
+    a_len = np.fromiter((len(s) for s in a_names), np.int64, n_anomalies)
+    out["client_u32"][a] = host_base + rng.integers(
+        0, n_hosts, n_anomalies).astype(np.uint32)
+    out["qname_codes"][a] = len(names) + np.arange(n_anomalies)
+    out["qtype"][a] = rng.choice([16, 10, 255], n_anomalies)  # TXT/NULL/ANY
+    out["rcode"][a] = rng.choice([0, 3], n_anomalies)
+    out["frame_len"][a] = (120 + 4 * a_len).astype(np.int32)
+    out["hour"][a] = rng.uniform(0, 6, n_anomalies)
+    out["qnames"] = np.concatenate(
+        [np.asarray(names, dtype=object), a_names])
+    out["anomaly_idx"] = np.arange(n_bg, n_events, dtype=np.int64)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -352,4 +527,88 @@ def synth_proxy_day(n_events: int = 20000, n_hosts: int = 120,
     return _shuffle(table, n_bg, n_events, rng)
 
 
+def synth_proxy_day_arrays(n_events: int, n_hosts: int = 100_000,
+                           n_anomalies: int | None = None, seed: int = 0,
+                           chunk: int = 10_000_000) -> dict:
+    """Columnar proxy day for the 10⁸-row configs[2] path:
+    dictionary-encoded `uris`/`hosts`/`agents` unique tables with
+    per-row codes, background-first/anomalies-last like the flow and
+    DNS array generators."""
+    if n_anomalies is None:
+        n_anomalies = max(30, n_events // 10_000)
+    n_anomalies = min(n_anomalies, n_events)
+    rng = np.random.default_rng(seed)
+    n_prof = len(_PROXY_PROFILES)
+    mix_cum = _host_mixture(rng, n_hosts, n_prof).cumsum(axis=1).astype(np.float32)
+
+    uris: list[str] = []
+    hosts: list[str] = []
+    uri_lo = np.zeros(n_prof + 1, np.int64)
+    host_lo = np.zeros(n_prof + 1, np.int64)
+    for p, (sites, paths, _ct, _mu) in enumerate(_PROXY_PROFILES):
+        uris.extend(paths)
+        hosts.extend(sites)
+        uri_lo[p + 1] = len(uris)
+        host_lo[p + 1] = len(hosts)
+    peak_of = np.array([p[3] for p in _PROXY_PROFILES], np.float32)
+    n_uris_of = np.diff(uri_lo)
+    n_hosts_of = np.diff(host_lo)
+
+    host_base = np.uint32(10 << 24)
+    n_bg = n_events - n_anomalies
+    out = {
+        "client_u32": np.empty(n_events, np.uint32),
+        "uri_codes": np.empty(n_events, np.int64),
+        "host_codes": np.empty(n_events, np.int64),
+        "ua_codes": np.empty(n_events, np.int64),
+        "respcode": np.empty(n_events, np.int32),
+        "hour": np.empty(n_events, np.float32),
+    }
+    for lo in range(0, n_bg, chunk):
+        hi = min(lo + chunk, n_bg)
+        m = hi - lo
+        h_idx = rng.integers(0, n_hosts, m)
+        u = rng.random(m, np.float32)
+        prof = np.clip((mix_cum[h_idx] < u[:, None]).sum(axis=1),
+                       0, n_prof - 1)
+        out["client_u32"][lo:hi] = host_base + h_idx.astype(np.uint32)
+        out["uri_codes"][lo:hi] = uri_lo[prof] + rng.integers(0, n_uris_of[prof])
+        out["host_codes"][lo:hi] = host_lo[prof] + rng.integers(0, n_hosts_of[prof])
+        out["ua_codes"][lo:hi] = rng.integers(0, len(_AGENTS), m)
+        out["respcode"][lo:hi] = rng.choice(
+            np.array([200, 304, 404], np.int32), m, p=[.85, .1, .05])
+        out["hour"][lo:hi] = np.clip(rng.normal(peak_of[prof], 2.5), 0, 23.99)
+
+    # Anomaly campaigns: beaconing to raw-IP hosts with junk URIs and
+    # rare per-campaign agents — the _proxy_campaigns recipe shared
+    # with synth_proxy_day (heterogeneity rationale in its docstring).
+    camp, camp_lo, camp_hi, camp_hour = _proxy_campaigns(rng, n_anomalies)
+    a_uris = _junk_uris(rng, camp, camp_lo, camp_hi)
+    a_hosts = np.array(
+        [f"198.51.{rng.integers(0, 100)}.{rng.integers(1, 255)}"
+         for _ in range(n_anomalies)], dtype=object)
+    a_agents_u, a_ua_codes = np.unique(np.array(
+        [f"tool{c}/{rng.integers(1, 9)}.{rng.integers(0, 9)}"
+         for c in camp], dtype=object), return_inverse=True)
+
+    a = slice(n_bg, n_events)
+    out["client_u32"][a] = host_base + rng.integers(
+        0, n_hosts, n_anomalies).astype(np.uint32)
+    out["uri_codes"][a] = len(uris) + np.arange(n_anomalies)
+    out["host_codes"][a] = len(hosts) + np.arange(n_anomalies)
+    out["ua_codes"][a] = len(_AGENTS) + a_ua_codes
+    out["respcode"][a] = rng.choice(np.array([200, 503], np.int32),
+                                    n_anomalies)
+    out["hour"][a] = np.clip(camp_hour[camp]
+                             + rng.uniform(0, 1.5, n_anomalies), 0, 23.99)
+    out["uris"] = np.concatenate([np.asarray(uris, dtype=object), a_uris])
+    out["hosts"] = np.concatenate([np.asarray(hosts, dtype=object), a_hosts])
+    out["agents"] = np.concatenate(
+        [np.asarray(list(_AGENTS), dtype=object), a_agents_u])
+    out["anomaly_idx"] = np.arange(n_bg, n_events, dtype=np.int64)
+    return out
+
+
 SYNTH = {"flow": synth_flow_day, "dns": synth_dns_day, "proxy": synth_proxy_day}
+SYNTH_ARRAYS = {"flow": synth_flow_day_arrays, "dns": synth_dns_day_arrays,
+                "proxy": synth_proxy_day_arrays}

@@ -236,6 +236,15 @@ def test_left_out_paths_raise(day, tmp_path, override, engine):
             assert saved.meta["model_epoch"] == epoch
         assert saved.arrays["theta"].shape[1] == 5
         return
+    if engine == "sharded":
+        # Ported: the sharded engine on a 1x1 mesh fits the day
+        # (tests/test_torch_sharded.py holds it to the reference).
+        assert trun.run_scoring(cfg, engine=engine, device="cpu") == 0
+        man = json.loads((tmp_path / "results" / "20160708"
+                          / "flow_results.manifest.json").read_text())
+        assert man["engine"] == "sharded"
+        assert man["kernel_launches"] == {"sample_count": 0}
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         trun.run_scoring(cfg, engine=engine, device="cpu")
 

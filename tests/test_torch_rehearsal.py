@@ -169,8 +169,87 @@ def test_rehearsal_cli_writes_every_field(have_oracle, tmp_path, capsys):
     ({"bf16_arm": True}, "bf16_arm"),
 ])
 def test_rehearsal_arms_outside_the_port_raise(kw, what):
-    with pytest.raises(NotImplementedError, match=what):
-        rehearsal.run_rehearsal(n_events=100, device="cpu", **kw)
+    if what == "generator='sessions'":
+        with pytest.raises(NotImplementedError, match=what):
+            rehearsal.run_rehearsal(n_events=100, device="cpu", **kw)
+        return
+    # The sharded engine and the bf16 arm run on one device
+    # (test_rehearsal_sharded_bf16_arm_matches_reference); on a wider
+    # mesh they still raise, before any data is built.
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        rehearsal.run_rehearsal(n_events=100, device="cpu",
+                                **dict(kw, engine="sharded",
+                                       engine_mesh=(2, 1)))
+
+
+def _capture_scores(monkeypatch, module):
+    """Record every `module.score_all` call of a rehearsal: its θ, its
+    φ_wk and the token scores it returns, as numpy arrays."""
+    seen = []
+    real = module.score_all
+
+    def score_all(theta, phi_wk, *a, **k):
+        out = real(theta, phi_wk, *a, **k)
+        seen.append(tuple(np.asarray(x) for x in (theta, phi_wk, out)))
+        return out
+    monkeypatch.setattr(module, "score_all", score_all)
+    return seen
+
+
+def test_rehearsal_sharded_bf16_arm_matches_reference(have_oracle,
+                                                      monkeypatch):
+    """Both packages' rehearsals with the sharded engine on a 1×1 mesh
+    and the bf16 arm, on the same day, the port replaying the
+    reference's keys: the f32 and bf16 token scores agree to 48 ulps
+    (two chains' geometric mean, as tests/test_torch_chains.py holds
+    it), the port's bf16 tables are the reference's `astype` rounding of
+    its f32 ones, and every overlap the result reports is the
+    reference's."""
+    import jax.numpy as jnp
+
+    from onix.models import scoring as jscoring
+    from onix_torch.models import scoring as tscoring
+    from onix_torch.parallel import sharded_gibbs as tsg
+    from tests.test_torch_sharded import ShardedReplayNoise
+
+    monkeypatch.setattr(tsg, "TorchNoise",
+                        lambda seed, device, n_chains=1:
+                        ShardedReplayNoise(seed, n_chains))
+    j_seen = _capture_scores(monkeypatch, jscoring)
+    t_seen = _capture_scores(monkeypatch, tscoring)
+    kw = dict(n_events=2000, n_sweeps=6, n_chains=2, n_oracle_runs=2,
+              engine="sharded", engine_mesh=(1, 1), bf16_arm=True)
+    jr = jreh.run_rehearsal(**kw)
+    tr = rehearsal.run_rehearsal(device="cpu", **kw)
+    assert len(j_seen) == len(t_seen) == 2
+
+    (t_th, t_ph, port), (t_th16, t_ph16, port16) = t_seen
+    (_, _, jx), (_, _, jx16) = j_seen
+    assert t_th.shape[0] == 2            # the two chains' θ, unmerged
+    for tab, rounded in ((t_th, t_th16), (t_ph, t_ph16)):
+        np.testing.assert_array_equal(rounded, np.asarray(
+            jnp.asarray(tab).astype(jnp.bfloat16).astype(jnp.float32)))
+        assert not np.array_equal(rounded, tab)
+    ulp48 = 48 * 2.0 ** -23
+    np.testing.assert_allclose(port, jx, rtol=ulp48)
+    np.testing.assert_allclose(port16, jx16, rtol=ulp48)
+    # The rounding moves the scores far past that tolerance, so a bf16
+    # arm that rounded nothing could not pass the line above.
+    assert np.max(np.abs(jx16 - jx) / jx) > 100 * ulp48
+
+    assert tr["config"]["engine"] == "sharded"
+    assert tr["config"]["engine_mesh"] == [1, 1]
+    pairs = {"port_vs_oracle": "jax_vs_oracle",
+             "port_vs_oracle_b": "jax_vs_oracle_b",
+             "port_vs_vem": "jax_vs_vem",
+             "port_bf16_vs_oracle": "jax_bf16_vs_oracle"}
+    for key in ("oracle_vs_oracle", "single_run_floor", "gibbs_vs_vem",
+                "bf16_vs_f32", "overlap_at_k", *pairs):
+        assert tr[key] == jr[pairs.get(key, key)], key
+    assert tr["planted_hit_at_k"] == {
+        "port": jr["planted_hit_at_k"]["jax"],
+        "oracle": jr["planted_hit_at_k"]["oracle"]}
+    assert "bf16_score" in tr["walls_seconds"]
 
 
 def test_summarize_cells_is_the_reference_summary():
