@@ -1,7 +1,7 @@
 """Command line of the PyTorch port.
 
     python -m onix_torch.cli score <date> <flow|dns|proxy> [--tol T]
-        [--max-results N] [--engine gibbs|sharded] [--fault-inject SWEEP]
+        [--max-results N] [--engine gibbs|svi|sharded] [--fault-inject SWEEP]
         [--fault-plan PLAN] [-c CONFIG] [-s KEY.PATH=VALUE ...]
         [--device cuda|cpu]
     python -m onix_torch.cli serve [--port P] [--host H]
@@ -17,8 +17,10 @@ preempts the Gibbs fit after sweep N (ONIX_FAULT_SWEEP), and
 `--fault-plan` installs a chaos plan (`utils/faults.py`); with `-s
 lda.checkpoint_every=E` a rerun resumes from the last checkpoint.
 `--engine sharded` fits with the sharded engine on one device (a 1×1
-`mesh`); the reference's `--engine svi` is accepted and raises
-NotImplementedError until its slice is ported.
+`mesh`), `--engine svi` with online variational Bayes over document
+minibatches; `-s lda.sampler_form=sparse` (or ONIX_SAMPLER_FORM=sparse)
+runs either Gibbs engine with the sparse sampler. `--fault-inject` is
+wired to the gibbs engine only, as in the reference.
 """
 
 from __future__ import annotations

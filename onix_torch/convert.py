@@ -1,5 +1,5 @@
-"""Carry fitted tables, sampler state and filter tables across from the
-JAX package.
+"""Carry fitted tables, sampler state, SVI state and filter tables
+across from the JAX package.
 
 The functions take numpy arrays — what `np.asarray` gives for the
 fields of the reference's `GibbsState`, for its fitted θ/φ, or for the
@@ -17,6 +17,7 @@ import torch
 
 from onix_torch.feedback.filter import FilterTables, half_tensor
 from onix_torch.models.lda_gibbs import GibbsState
+from onix_torch.models.lda_svi import SVIState
 
 _STATE_DTYPES = {"z": torch.int32, "n_dk": torch.int32,
                  "n_wk": torch.int32, "n_k": torch.int32,
@@ -36,6 +37,14 @@ def gibbs_state_from_numpy(arrays: dict, device) -> GibbsState:
                                  device=device)
               for name, dt in _STATE_DTYPES.items()}
     return GibbsState(**fields, n_acc=int(np.asarray(arrays["n_acc"])))
+
+
+def svi_state_from_numpy(lam, step, device) -> SVIState:
+    """The port's `SVIState` from the reference's (`lam` [V, K] and
+    `step` as numpy): λ as an f32 tensor on `device`."""
+    return SVIState(lam=torch.tensor(np.asarray(lam), dtype=torch.float32,
+                                     device=device),
+                    step=int(np.asarray(step)))
 
 
 def model_from_numpy(theta, phi_wk, device) -> tuple[torch.Tensor,

@@ -1,5 +1,5 @@
 """Batched collapsed-Gibbs LDA in PyTorch — the port of
-`onix/models/lda_gibbs.py`, dense sampler arm.
+`onix/models/lda_gibbs.py`, both sampler arms.
 
 Tokens are sampled in blocks of `block_size`: within a block every
 token sees counts that exclude its own assignment but are stale with
@@ -28,12 +28,24 @@ K1 call for all C chains, and the fit returns θ [C, D, K] and φ_wk
 [C, V, K], which scoring combines by a geometric mean over chains. One
 chain keeps its own arrays without the axis, as in the reference.
 
+The sparse arm (`lda.sampler_form = "sparse"`, or "auto" at K >= 64 on
+the CPU) replaces K1 in the block step: per token, `lda.sparse_mh`
+Metropolis-Hastings moves whose proposal mixes the document's stale
+top-A topics, a bisection of the word's stale φ CDF and a thin uniform
+branch, accepted against the fresh blocked target, then rank-1 count
+moves (`make_sparse_block_step`, the reference's `:507`). Its proposal
+tables are rebuilt from the counts at the start of every sweep, so S
+sweeps in one superstep equal S single sweeps. It launches no K1: it is
+PyTorch ops, as the reference's arm is XLA with no Pallas kernel.
+
 Random numbers come from a noise source (`TorchNoise` by default: a
 `torch.Generator` on the fit's device). The source is one object that
 `GibbsLDA.fit` takes, so the tests can hand in a replay of the
 reference's JAX key stream and compare the two fits draw for draw. A
 source for C chains gives the init's topics for the whole [C, n_blocks,
-B] state and one [C, B, K] draw a block. Its `get_state`/`set_state`
+B] state and one [C, B, K] draw a block (the sparse arm: one [C, n_mh,
+B, 3] draw of uniforms a block, `sparse_block`, at the same position in
+the stream). Its `get_state`/`set_state`
 carry the stream across a checkpoint: the fit saves the state tensors,
 n_acc and the source's state (`rng_state`), and a resumed fit restores
 them and skips the init, so it continues the same chain.
@@ -45,17 +57,17 @@ import dataclasses
 import os
 import pathlib
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from onix_torch import checkpoint as ckpt
-from onix_torch import not_ported
 from onix_torch.config import LDAConfig, resolve_form_gate
 from onix_torch.corpus import Corpus
 from onix_torch.device import resolve_device
 from onix_torch.models.compaction import pow2_bucket
-from onix_torch.models.sample_count import gibbs_block_step_
+from onix_torch.models.sample_count import gibbs_block_step_, move_counts_
 from onix_torch.utils import faults
 
 # Auto superstep size (config.lda.superstep == 0): the reference's
@@ -75,9 +87,10 @@ NWK_MATMUL_MAX_BLOCK = 1 << 24
 # where a committed measurement says it wins:
 #   * cpu — K >= 64: the reference's measurement on a CPU host
 #     (docs/SPARSE_r11_cpu.json); the port resolves as the reference
-#     does there, so `--device cpu` at K >= 64 refuses (the sparse arm
-#     is slice 4) instead of quietly running a dense chain.
-#   * cuda — no entry: no card measurement exists, so auto stays dense.
+#     does there, so `--device cpu` at K >= 64 runs the sparse arm.
+#   * cuda — no entry: auto stays dense on the card. `chip_smoke.py`
+#     phase 10 (b) times both arms at K 20 to 1,024 (PERF.md §6); an
+#     entry here would change the card's default chain.
 _SAMPLER_SPARSE_MIN_K: dict[str, float] = {"cpu": 64.0}
 
 
@@ -187,6 +200,201 @@ def resolve_sparse_active(k_topics: int, sparse_active: int = 0) -> int:
     return min(int(k_topics), pow2_bucket(max(8, k_topics // 16)))
 
 
+class SparseTables(NamedTuple):
+    """The sparse arm's stale proposal tables, a function of the counts
+    at the start of a sweep (the reference's `:437`); a leading C on
+    each for C chains.
+
+    act_ids/act_cnt: each document's top-A topics by stale count and
+    those counts (ties to the lower topic, as `lax.top_k`). phi_cdf:
+    the row prefix sums of the stale φ̂ = (n_wk + η) / (n_k + Vη), whose
+    last column is the row total. nwk/nk: copies of the sweep-start
+    counts, which the fit then updates in place."""
+    act_ids: torch.Tensor   # int32 [C?, D, A]
+    act_cnt: torch.Tensor   # f32   [C?, D, A]
+    phi_cdf: torch.Tensor   # f32   [C?, V, K]
+    nwk: torch.Tensor       # int32 [C?, V, K]
+    nk: torch.Tensor        # int32 [C?, K]
+
+
+# Block length of XLA's rewrite of a cumulative sum on the CPU: prefix
+# sums run left to right inside blocks of 16, and the blocks' totals
+# are scanned the same way, recursively.
+_CUMSUM_BLOCK = 16
+
+
+def prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """f32 inclusive prefix sums over the last axis, added in the order
+    of `jnp.cumsum` on the reference's CPU backend (XLA's blocked
+    rewrite), so that the sums agree bit for bit. `torch.cumsum`
+    accumulates in f64 on the CPU and in a tree on the card: both round
+    differently."""
+    n = x.shape[-1]
+    if n <= _CUMSUM_BLOCK:
+        out = x.clone()
+        for j in range(1, n):
+            out[..., j] += out[..., j - 1]
+        return out
+    nb = -(-n // _CUMSUM_BLOCK)
+    padded = torch.nn.functional.pad(x, (0, nb * _CUMSUM_BLOCK - n))
+    inner = prefix_sum(padded.reshape(*x.shape[:-1], nb, _CUMSUM_BLOCK))
+    totals = prefix_sum(inner[..., -1])
+    before = torch.nn.functional.pad(totals[..., :-1], (1, 0))
+    out = inner + before[..., None]
+    return out.reshape(padded.shape)[..., :n]
+
+
+def build_sparse_tables(n_dk: torch.Tensor, n_wk: torch.Tensor,
+                        n_k: torch.Tensor, *, eta: float, v_eta: float,
+                        n_active: int) -> SparseTables:
+    """The reference's `build_sparse_tables` (`:458`). The top A are the
+    first A of a stable descending sort: `torch.topk` orders tied counts
+    otherwise, and an n_dk row is mostly ties."""
+    vals, ids = torch.sort(n_dk, dim=-1, descending=True, stable=True)
+    phi = ((n_wk.to(torch.float32) + eta)
+           / (n_k.to(torch.float32)[..., None, :] + v_eta))
+    return SparseTables(
+        act_ids=ids[..., :n_active].to(torch.int32).contiguous(),
+        act_cnt=vals[..., :n_active].to(torch.float32).contiguous(),
+        phi_cdf=prefix_sum(phi).contiguous(), nwk=n_wk.clone(),
+        nk=n_k.clone())
+
+
+def cdf_lower_bound(cdf_flat: torch.Tensor, row: torch.Tensor,
+                    t: torch.Tensor, k: int) -> torch.Tensor:
+    """The count of entries of cdf[row, :] below t, in [0, k], for each
+    element: `np.searchsorted(cdf[row], t, "left")` over rows of a
+    flattened [*, k] table (the reference's `:470`). log2(k) rounds of
+    one gather over every element; `row` indexes the flattened table's
+    rows (for C chains, row + c * rows)."""
+    pos = torch.zeros(row.shape, dtype=torch.int64, device=row.device)
+    base = row.to(torch.int64) * k
+    s = 1 << max(0, int(k).bit_length() - 1)     # largest pow2 <= k
+    while s:
+        cand = pos + s
+        val = torch.take(cdf_flat, base + torch.clamp_max(cand, k) - 1)
+        pos = torch.where((cand <= k) & (val < t), cand, pos)
+        s >>= 1
+    return pos
+
+
+# Weight of the uniform escape branch in the sparse arm's proposal
+# mixture, as a fraction of the (doc block + dense CDF) mass (the
+# reference's `:504`): every topic keeps a nonzero realized proposal
+# probability under f32, so the chain's support is the target's.
+_SPARSE_UNIFORM_FRAC = 1.0 / 64.0
+
+# Relative band within which the sparse arm's ll must land on the dense
+# arm's (the reference's `:1037`).
+LL_PARITY_BAND = 0.05
+
+
+def make_sparse_block_step(*, alpha: float, eta: float, v_eta: float,
+                           k_topics: int, n_mh: int, tables: SparseTables):
+    """The sparse arm's block step (the reference's `:507`), for every
+    chain of the tables at once. Returns step(n_dk, n_wk, n_k, z, u, d,
+    w, m), which samples the block from the counts as they stand and
+    moves its counts, in place: u is the block's uniforms [C?, n_mh, B,
+    3] on [1e-38, 1) (branch pick, position, acceptance), z its topics
+    [C?, B] (K on padding).
+
+    Each token makes n_mh independence-sampler MH moves. The proposal
+    mixes the document's stale top-A block (inverse CDF over A slots),
+    α times the word's stale φ̂ row (CDF bisection) and a uniform escape
+    branch; the acceptance ratio charges the realized f32 interval
+    widths of those draws and evaluates the fresh blocked target (counts
+    less the token's own sweep-start topic) at the two topics only. The
+    float ops are the reference's, in its order."""
+    k = k_topics
+    chained = tables.act_ids.dim() == 3
+    lead = tables.act_ids.shape[0] if chained else 1
+    act_ids = tables.act_ids.reshape(lead, *tables.act_ids.shape[-2:])
+    act_cnt = tables.act_cnt.reshape(act_ids.shape)
+    a_width = act_ids.shape[-1]
+    n_vocab = tables.phi_cdf.shape[-2]
+    cdf_flat = tables.phi_cdf.reshape(lead, -1)
+    nwk_stale = tables.nwk.reshape(lead, -1).to(torch.float32)
+    nk_stale = tables.nk.reshape(lead, -1).to(torch.float32)
+    device = act_ids.device
+    chain_rows = torch.arange(lead, device=device)[:, None] * n_vocab
+
+    def step(n_dk, n_wk, n_k, z, u, d, w, m) -> None:
+        shape = z.shape
+        ndk_flat, nwk_flat = n_dk.view(lead, -1), n_wk.view(lead, -1)
+        nk = n_k.view(lead, -1)
+        z_old = z.reshape(lead, -1)
+        u = u.reshape(lead, n_mh, -1, 3)
+        rows_d, rows_w = d.to(torch.int64), w.to(torch.int64)
+        b = rows_d.shape[0]
+        valid = (m > 0.0)[None]
+        zf = torch.where(valid, z_old, 0).to(torch.int64)
+
+        a_ids = act_ids.index_select(1, rows_d).to(torch.int64)  # [C, B, A]
+        a_cnt = act_cnt.index_select(1, rows_d)
+        phi_a = ((torch.gather(nwk_stale, 1, (rows_w[None, :, None] * k
+                                              + a_ids).reshape(lead, -1))
+                  .reshape(a_ids.shape) + eta)
+                 / (torch.gather(nk_stale, 1, a_ids.reshape(lead, -1))
+                    .reshape(a_ids.shape) + v_eta))
+        s_cum = prefix_sum(a_cnt * phi_a)
+        s_width = torch.diff(s_cum, dim=-1, prepend=torch.zeros(
+            (lead, b, 1), dtype=torch.float32, device=device))
+        s_mass = s_cum[..., -1]                            # [C, B]
+        q_w = torch.gather(cdf_flat, 1, (rows_w * k + (k - 1))
+                           .expand(lead, b))
+        dense_mass = alpha * q_w
+        u_mass = _SPARSE_UNIFORM_FRAC * (s_mass + dense_mass)
+        tot_mass = s_mass + dense_mass + u_mass
+        word_rows = rows_w[None] + chain_rows             # [C, B]
+
+        def target(kk):
+            e = (kk == zf).to(torch.int32)
+            ndk = (torch.gather(ndk_flat, 1, rows_d[None] * k + kk)
+                   - e).to(torch.float32)
+            nwk = (torch.gather(nwk_flat, 1, rows_w[None] * k + kk)
+                   - e).to(torch.float32)
+            nkk = (torch.gather(nk, 1, kk) - e).to(torch.float32)
+            return ((ndk + alpha) * torch.clamp_min(nwk + eta, 1e-10)
+                    / (nkk + v_eta))
+
+        def proposal_weight(kk):
+            hit = a_ids == kk[..., None]
+            doc_term = torch.where(hit, s_width, 0.0).sum(-1)
+            hi = torch.gather(cdf_flat, 1, rows_w[None] * k + kk)
+            lo = torch.where(kk > 0, torch.gather(
+                cdf_flat, 1, rows_w[None] * k + torch.clamp_min(kk - 1, 0)),
+                0.0)
+            return doc_term + alpha * (hi - lo) + u_mass / k
+
+        z_cur, t_cur, q_cur = zf, target(zf), proposal_weight(zf)
+        for i in range(n_mh):
+            u_sel, u_pos, u_acc = u[:, i, :, 0], u[:, i, :, 1], u[:, i, :, 2]
+            t_s = u_pos * s_mass
+            j = (s_cum < t_s[..., None]).sum(-1)
+            j = torch.clamp_max(j, a_width - 1)
+            k_sparse = torch.gather(a_ids, 2, j[..., None])[..., 0]
+            pos = cdf_lower_bound(cdf_flat, word_rows, u_pos * q_w, k)
+            k_dense = torch.clamp_max(pos, k - 1)
+            k_unif = torch.clamp_max((u_pos * k).to(torch.int64), k - 1)
+            t_sel = u_sel * tot_mass
+            k_prop = torch.where(t_sel < s_mass, k_sparse,
+                                 torch.where(t_sel < s_mass + dense_mass,
+                                             k_dense, k_unif))
+            t_p, q_p = target(k_prop), proposal_weight(k_prop)
+            ratio = t_p * q_cur / torch.clamp_min(t_cur * q_p, 1e-38)
+            acc = u_acc < ratio
+            z_cur = torch.where(acc, k_prop, z_cur)
+            t_cur = torch.where(acc, t_p, t_cur)
+            q_cur = torch.where(acc, q_p, q_cur)
+        z_new = torch.where(valid, z_cur.to(torch.int32), z_old)
+        move_counts_(ndk_flat.view(lead, *n_dk.shape[-2:]),
+                     nwk_flat.view(lead, *n_wk.shape[-2:]), nk, d, w,
+                     z_old, z_new)
+        z.copy_(z_new.reshape(shape))
+
+    return step
+
+
 def check_block(config: LDAConfig, block: int) -> None:
     """The reference's refusal of the matmul form at a block of 2^24
     tokens or more, so that the same configs fail in both packages."""
@@ -242,7 +450,8 @@ class TorchNoise:
     """The fit's random numbers, from one `torch.Generator` on the
     device: the init's topics, then one [B, K] f32 draw per block, or
     for `n_chains` > 1 one [C, B, K] draw per block (one `torch.rand`
-    for every chain, so the noise launches do not grow with C).
+    for every chain, so the noise launches do not grow with C); the
+    sparse arm draws [C?, n_mh, B, 3] uniforms a block instead.
 
     The draws follow the reference's distributions: uniforms on
     [1e-38, 1) for the exponential race (JAX's `minval=1e-38`), and
@@ -267,6 +476,14 @@ class TorchNoise:
         if use_gumbel:
             u.clamp_min_(torch.finfo(torch.float32).tiny)
             return -torch.log(-torch.log(u))
+        return u.clamp_min_(1e-38)
+
+    def sparse_block(self, n_mh: int, b: int) -> torch.Tensor:
+        """The sparse arm's draw for one block: [C?, n_mh, B, 3] f32
+        uniforms on [1e-38, 1), as the reference's `uniform(skey, (n_mh,
+        b, 3), minval=1e-38)`."""
+        u = torch.rand((*self.lead, n_mh, b, 3), generator=self.generator,
+                       device=self.device, dtype=torch.float32)
         return u.clamp_min_(1e-38)
 
     def get_state(self) -> np.ndarray:
@@ -343,35 +560,68 @@ def init_chains(docs: torch.Tensor, words: torch.Tensor,
         n_acc=0)
 
 
+def _block_z(state: GibbsState, i: int) -> torch.Tensor:
+    """Block `i`'s topics: a row of z, or for a chained state the
+    strided view z[:, i]."""
+    return state.z[i] if state.z.dim() == 2 else state.z[:, i]
+
+
 def block_step(state: GibbsState, i: int, d: torch.Tensor, w: torch.Tensor,
                m: torch.Tensor, noise_block: torch.Tensor, *, alpha: float,
                eta: float, v_eta: float, use_gumbel: bool) -> None:
     """Sample block `i` of the sweep from the counts as they stand and
     fold its deltas into the counts, in place: one call of K1, for every
-    chain of a chained state (its block is the strided view z[:, i])."""
-    z = state.z[i] if state.z.dim() == 2 else state.z[:, i]
-    gibbs_block_step_(state.n_dk, state.n_wk, state.n_k, z, noise_block,
-                      d, w, m, alpha=alpha, eta=eta, v_eta=v_eta,
-                      use_gumbel=use_gumbel)
+    chain of a chained state."""
+    gibbs_block_step_(state.n_dk, state.n_wk, state.n_k, _block_z(state, i),
+                      noise_block, d, w, m, alpha=alpha, eta=eta,
+                      v_eta=v_eta, use_gumbel=use_gumbel)
 
 
 def sweep(state: GibbsState, docs: torch.Tensor, words: torch.Tensor,
           mask: torch.Tensor, *, alpha: float, eta: float, n_vocab: int,
-          accumulate: bool, noise, use_gumbel: bool) -> GibbsState:
+          accumulate: bool, noise, use_gumbel: bool,
+          sampler_form: str | None = None, sparse_active: int = 0,
+          sparse_mh: int = 2) -> GibbsState:
     """One full Gibbs sweep over all token blocks, in place. With
     `accumulate`, the sweep's counts are added to the posterior-mean
     sums: `acc += n` is bit-identical to the reference's
-    `acc + a * n` with a = 1.0, and skipping it to a = 0.0."""
+    `acc + a * n` with a = 1.0, and skipping it to a = 0.0.
+
+    The sampler form goes through the reference's gate
+    (`make_sweep_kernel`, `lda_gibbs.py:640`): an explicit
+    `sampler_form`, then ONIX_SAMPLER_FORM, then the measured K
+    crossover of the state's device. "dense" steps each block with K1;
+    "sparse" builds its proposal tables from the counts as they stand
+    at the sweep's start and steps each block with
+    `make_sparse_block_step`."""
     v_eta = n_vocab * eta
     n_blocks, b = docs.shape
     k_topics = state.n_k.shape[-1]
-    # One draw a block, shaped to the state's chain axis: a one-chain
-    # source's [B, K] serves a chained state of C = 1 too.
-    shape = (*state.z.shape[:-2], b, k_topics)
-    for i in range(n_blocks):
-        block_step(state, i, docs[i], words[i], mask[i],
-                   noise.block(b, k_topics, use_gumbel).reshape(shape),
-                   alpha=alpha, eta=eta, v_eta=v_eta, use_gumbel=use_gumbel)
+    form = _resolved_sampler_form(sampler_form, k_topics=k_topics,
+                                  pinned=False,
+                                  backend=state.n_k.device.type)
+    lead = state.z.shape[:-2]
+    if form == "sparse":
+        tables = build_sparse_tables(
+            state.n_dk, state.n_wk, state.n_k, eta=eta, v_eta=v_eta,
+            n_active=resolve_sparse_active(k_topics, sparse_active))
+        step = make_sparse_block_step(alpha=alpha, eta=eta, v_eta=v_eta,
+                                      k_topics=k_topics, n_mh=sparse_mh,
+                                      tables=tables)
+        for i in range(n_blocks):
+            step(state.n_dk, state.n_wk, state.n_k, _block_z(state, i),
+                 noise.sparse_block(sparse_mh, b).reshape(
+                     *lead, sparse_mh, b, 3),
+                 docs[i], words[i], mask[i])
+    else:
+        # One draw a block, shaped to the state's chain axis: a
+        # one-chain source's [B, K] serves a chained state of C = 1 too.
+        for i in range(n_blocks):
+            block_step(state, i, docs[i], words[i], mask[i],
+                       noise.block(b, k_topics, use_gumbel).reshape(
+                           *lead, b, k_topics),
+                       alpha=alpha, eta=eta, v_eta=v_eta,
+                       use_gumbel=use_gumbel)
     if accumulate:
         state.acc_ndk += state.n_dk
         state.acc_nwk += state.n_wk
@@ -381,15 +631,16 @@ def sweep(state: GibbsState, docs: torch.Tensor, words: torch.Tensor,
 
 def superstep(state: GibbsState, docs, words, mask, *, alpha: float,
               eta: float, n_vocab: int, burn_in: int, start_sweep: int,
-              n_steps: int, noise, use_gumbel: bool) -> GibbsState:
+              n_steps: int, noise, use_gumbel: bool, **sampler) -> GibbsState:
     """`n_steps` sweeps from sweep `start_sweep`; sweep s accumulates
     iff s >= burn_in. The reference fuses these into one program; here
     it is the same sweeps in a loop, so S sweeps in one superstep equal
-    S single sweeps."""
+    S single sweeps. `sampler` (sampler_form, sparse_active, sparse_mh)
+    goes to every `sweep`."""
     for i in range(n_steps):
         sweep(state, docs, words, mask, alpha=alpha, eta=eta,
               n_vocab=n_vocab, accumulate=start_sweep + i >= burn_in,
-              noise=noise, use_gumbel=use_gumbel)
+              noise=noise, use_gumbel=use_gumbel, **sampler)
     return state
 
 
@@ -579,15 +830,15 @@ def counts_log_likelihood(n_dk: torch.Tensor, n_wk: torch.Tensor,
 
 class GibbsLDA:
     """Host-side fit loop: the port of the reference's `GibbsLDA`
-    (dense sampler, any number of chains, checkpoint resume).
+    (either sampler arm, any number of chains, checkpoint resume).
 
     `device` defaults to "cuda" and raises without a card. `sampler`
     pins the categorical draw ("gumbel" | "race"); None follows the
     device as the reference does (`lda_gibbs.py:714`): Gumbel on a card,
     the race on the CPU. The tests use it to run the card's form on the
     CPU. The sampler form resolves once here, as the reference's does
-    (`resolve_sampler`, keyed on the device type); a form that resolves
-    to "sparse" raises, since that arm is slice 4."""
+    (`resolve_sampler`, keyed on the device type): "dense" (K1) or
+    "sparse" (`make_sparse_block_step`)."""
 
     def __init__(self, config: LDAConfig, n_docs: int, n_vocab: int, *,
                  device: str | torch.device = "cuda",
@@ -598,15 +849,9 @@ class GibbsLDA:
         self.n_vocab = n_vocab
         self.device = resolve_device(device)
         nwk_form = None if config.nwk_form == "auto" else config.nwk_form
-        self.sampler_form, self.sparse_active, _ = resolve_sampler(
-            config, k_topics=config.n_topics, backend=self.device.type,
-            nwk_form=nwk_form)
-        if self.sampler_form == "sparse":
-            raise not_ported(
-                f"the sparse sampler (lda.sampler_form="
-                f"{config.sampler_form!r} resolves to 'sparse' at K="
-                f"{config.n_topics} on {self.device.type})",
-                "slice 4 (sparse sampler)")
+        self.sampler_form, self.sparse_active, self.sampler_kw = \
+            resolve_sampler(config, k_topics=config.n_topics,
+                            backend=self.device.type, nwk_form=nwk_form)
         if sampler is None:
             self.use_gumbel = self.device.type != "cpu"
         elif sampler in ("gumbel", "race"):
@@ -712,7 +957,7 @@ class GibbsLDA:
                            eta=cfg.eta, n_vocab=self.n_vocab,
                            burn_in=cfg.burn_in, start_sweep=start,
                            n_steps=n_steps, noise=noise,
-                           use_gumbel=self.use_gumbel)
+                           use_gumbel=self.use_gumbel, **self.sampler_kw)
             ll = ll_of(st)
             return (st, ll0, ll) if with_initial_ll else (st, ll)
 

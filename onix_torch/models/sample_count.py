@@ -30,34 +30,141 @@ themselves.
 from __future__ import annotations
 
 import ctypes
+import math
+import threading
 
+import numpy as np
 import torch
 
 #: Calls that launched the kernels since the count was last set to 0.
 launches = 0
 
 
+def _factors(ndk, nwk, nk, *, alpha: float, eta: float, v_eta: float,
+             use_gumbel: bool):
+    """The three f32 factors of a token's topic weight from its counts:
+    n_dk + alpha, max(n_wk + eta, 1e-10) and n_k + V*eta, or their logs
+    for the Gumbel form."""
+    f = (ndk.to(torch.float32) + alpha,
+         torch.clamp_min(nwk.to(torch.float32) + eta, 1e-10),
+         nk.to(torch.float32) + v_eta)
+    return tuple(torch.log(t) for t in f) if use_gumbel else f
+
+
+def _combine(a, b, c, use_gumbel: bool):
+    """The weight from its factors, in the reference's order:
+    (log a + log b) - log c, or (a * b) / c; written into `a`."""
+    return a.add_(b).sub_(c) if use_gumbel else a.mul_(b).div_(c)
+
+
+def _own_topic(z_old, k_topics: int):
+    """(topic index safe to gather with, is-a-real-token) for z_old: the
+    pad sentinel K reads column 0 and is masked out."""
+    real = z_old < k_topics
+    return torch.where(real, z_old, 0).to(torch.int64), real
+
+
+# Two [C, B, K] f32 buffers a thread that `gibbs_block_step_plain`
+# reuses from block to block on the CPU, where a fresh pair of a few MB
+# every step costs more in page faults than the step's arithmetic.
+_work = threading.local()
+
+
+def _workspace(shape, device):
+    """The calling thread's two reusable f32 buffers of `shape` on the
+    CPU; None elsewhere (the card's caching allocator reuses memory)."""
+    if device.type != "cpu":
+        return None
+    n = math.prod(shape)
+    bufs = getattr(_work, "bufs", None)
+    if bufs is None or bufs[0].numel() < n:
+        bufs = _work.bufs = tuple(torch.empty(n) for _ in range(2))
+    return tuple(b[:n].view(shape) for b in bufs)
+
+
 def sample_scores(n_dk, n_wk, n_k, noise, d, w, z_old, *, alpha: float,
-                  eta: float, v_eta: float, use_gumbel: bool):
-    """The [B, K] f32 score rows whose argmax is K1's draw: the float
-    ops of `lda_gibbs.make_block_step`, in the same order. The tests
-    read them to find near-ties."""
-    k_topics = n_dk.shape[1]
-    iota = torch.arange(k_topics, device=n_dk.device, dtype=torch.int32)
-    # Comparison one-hot: the pad sentinel z == K matches no column and
-    # gives a zero row (F.one_hot would raise on it).
-    ohf = (z_old[:, None] == iota).to(torch.float32)
-    ndk = n_dk[d].to(torch.float32) - ohf
-    nwk = n_wk[w].to(torch.float32) - ohf
-    nk = n_k.to(torch.float32)[None, :] - ohf
+                  eta: float, v_eta: float, use_gumbel: bool, work=None):
+    """The [B, K] f32 score rows whose argmax is K1's draw ([C, B, K]
+    for chained counts [C, D, K], ...): the float ops of
+    `lda_gibbs.make_block_step`, in the same order. The tests read them
+    to find near-ties.
+
+    The reference subtracts a one-hot of the token's own topic from its
+    gathered rows. Here the factors are taken once over the tables and
+    gathered, and only the own topic's entry is recomputed from the
+    counts less one: x - 0.0 is x and an integer count less 1.0 is
+    exact in f32, so every entry is the reference's bit for bit.
+    `work`, two f32 buffers of the scores' shape, receives them instead
+    of fresh tensors."""
+    if n_dk.dim() == 2:
+        return sample_scores(n_dk[None], n_wk[None], n_k[None], noise[None],
+                             d, w, z_old[None], alpha=alpha, eta=eta,
+                             v_eta=v_eta, use_gumbel=use_gumbel,
+                             work=work)[0]
+    kw = dict(alpha=alpha, eta=eta, v_eta=v_eta, use_gumbel=use_gumbel)
+    k_topics = n_dk.shape[-1]
+    rows_d, rows_w = d.to(torch.int64), w.to(torch.int64)
+    fa, fb, fc = _factors(n_dk, n_wk, n_k, **kw)
+    s, tmp = work or (None, None)
+    tmp = torch.index_select(fb, 1, rows_w, out=tmp)
+    s = _combine(torch.index_select(fa, 1, rows_d, out=s), tmp,
+                 fc[:, None, :], use_gumbel)
+    zs, real = _own_topic(z_old, k_topics)
+
+    def own(table, rows):
+        flat = table.reshape(table.shape[0], -1)
+        return torch.gather(flat, 1, rows[None] * k_topics + zs) - 1
+    s_own = _combine(*_factors(own(n_dk, rows_d), own(n_wk, rows_w),
+                               torch.gather(n_k, 1, zs) - 1, **kw),
+                     use_gumbel)
+    # The own topic's entry of each row, as flat positions in s.
+    at = (torch.arange(zs.numel(), device=zs.device) * k_topics
+          + zs.view(-1))
+    flat = s.view(-1)
+    flat.index_copy_(0, at, torch.where(real.view(-1), s_own.view(-1),
+                                        flat[at]))
     if use_gumbel:
-        logp = (torch.log(ndk + alpha)
-                + torch.log(torch.clamp_min(nwk + eta, 1e-10))
-                - torch.log(nk + v_eta))
-        return logp + noise
-    p = ((ndk + alpha) * torch.clamp_min(nwk + eta, 1e-10)
-         / (nk + v_eta))
-    return p / -torch.log(noise)
+        return s.add_(noise)
+    return s.div_(torch.log(noise, out=tmp).neg_())
+
+
+def first_argmax(s):
+    """argmax over the last axis, the first maximum on ties, as int32:
+    numpy's on the CPU, where torch's reduction over a short last axis
+    is the slower of the two; `torch.argmax` elsewhere."""
+    if s.device.type == "cpu":
+        return torch.from_numpy(np.argmax(s.numpy(), axis=-1)
+                                .astype(np.int32))
+    return torch.argmax(s, dim=-1).to(torch.int32)
+
+
+def _moves(z_old, z_new, k_topics: int):
+    """(topics [C, 2B], ±1 [C, 2B]) of a block's count moves: +1 at each
+    real token's new topic, -1 at its old one; padding (topic K) adds 0
+    at column 0."""
+    zo, real_old = _own_topic(z_old, k_topics)
+    zn, real_new = _own_topic(z_new, k_topics)
+    return (torch.cat([zn, zo], dim=1),
+            torch.cat([real_new.to(torch.int32),
+                       -real_old.to(torch.int32)], dim=1))
+
+
+def move_counts_(n_dk, n_wk, n_k, d, w, z_old, z_new) -> None:
+    """Move each real token's count from its old topic to its new one,
+    in place: -1 at (d, z_old) and +1 at (d, z_new) in n_dk, the same in
+    n_wk at w and in n_k; padding (topic K) touches nothing. Chained
+    counts [C, ...] take z [C, B] and shared ids [B]. Integer adds, so
+    the result does not depend on their order."""
+    if n_dk.dim() == 2:
+        move_counts_(n_dk[None], n_wk[None], n_k[None], d, w, z_old[None],
+                     z_new[None])
+        return
+    k_topics = n_k.shape[-1]
+    topics, ones = _moves(z_old, z_new, k_topics)
+    for table, rows in ((n_dk, d), (n_wk, w)):
+        rows = rows.to(torch.int64).repeat(2)[None] * k_topics
+        table.view(table.shape[0], -1).scatter_add_(1, rows + topics, ones)
+    n_k.scatter_add_(1, topics, ones)
 
 
 def sample_count_plain(n_dk, n_wk, n_k, noise, d, w, z_old, mask, *,
@@ -66,53 +173,37 @@ def sample_count_plain(n_dk, n_wk, n_k, noise, d, w, z_old, mask, *,
     """K1 in PyTorch ops. Returns (z_new int32 [B], d_wk int32 [V, K])."""
     s = sample_scores(n_dk, n_wk, n_k, noise, d, w, z_old, alpha=alpha,
                       eta=eta, v_eta=v_eta, use_gumbel=use_gumbel)
-    z_new = torch.argmax(s, dim=-1).to(torch.int32)
-    z_new = torch.where(mask > 0, z_new, z_old)
+    z_new = torch.where(mask > 0, first_argmax(s), z_old)
     return z_new, count_delta(z_new, z_old, w, n_wk.shape[0],
                               n_dk.shape[1])
 
 
-def topic_delta(z_new, z_old, k_topics: int):
-    """[B, K] int32 onehot(z_new) - onehot(z_old). The one-hot is a
-    comparison with arange(K), so the pad sentinel K gives a zero row."""
-    iota = torch.arange(k_topics, device=z_new.device, dtype=torch.int32)
-    return ((z_new[:, None] == iota).to(torch.int32)
-            - (z_old[:, None] == iota).to(torch.int32))
-
-
 def count_delta(z_new, z_old, w, n_rows: int, k_topics: int):
     """The exact [V, K] int32 delta
-    sum_t onehot(w_t) (x) (onehot(z_new_t) - onehot(z_old_t)), by
-    `index_add_` over int64 row indices."""
-    d_wk = torch.zeros((n_rows, k_topics), dtype=torch.int32,
+    sum_t onehot(w_t) (x) (onehot(z_new_t) - onehot(z_old_t))."""
+    d_wk = torch.zeros((n_rows * k_topics,), dtype=torch.int32,
                        device=w.device)
-    d_wk.index_add_(0, w.to(torch.int64), topic_delta(z_new, z_old,
-                                                       k_topics))
-    return d_wk
+    topics, ones = _moves(z_old[None], z_new[None], k_topics)
+    rows = w.to(torch.int64).repeat(2) * k_topics
+    d_wk.index_add_(0, rows + topics[0], ones[0])
+    return d_wk.view(n_rows, k_topics)
 
 
 def gibbs_block_step_plain(n_dk, n_wk, n_k, z, noise, d, w, mask, *,
                            alpha: float, eta: float, v_eta: float,
                            use_gumbel: bool) -> None:
     """The block step in PyTorch ops, in place: every token drawn from
-    the counts as they are (`sample_count_plain`), then the deltas
-    added, as the reference's block step does. Chained operands
-    ([C, ...], ids shared) step chain by chain, each chain exactly as a
-    one-chain call on its slices."""
-    if n_dk.dim() == 3:
-        for c in range(n_dk.shape[0]):
-            gibbs_block_step_plain(n_dk[c], n_wk[c], n_k[c], z[c],
-                                   noise[c], d, w, mask, alpha=alpha,
-                                   eta=eta, v_eta=v_eta,
-                                   use_gumbel=use_gumbel)
-        return
-    z_new, d_wk = sample_count_plain(n_dk, n_wk, n_k, noise, d, w, z, mask,
-                                     alpha=alpha, eta=eta, v_eta=v_eta,
-                                     use_gumbel=use_gumbel)
-    delta = topic_delta(z_new, z, n_k.shape[0])
-    n_dk.index_add_(0, d, delta)
-    n_wk += d_wk
-    n_k += delta.sum(dim=0, dtype=torch.int32)
+    the counts as they are (`sample_scores`), then the deltas added
+    (`move_counts_`), as the reference's block step does. Chained
+    operands ([C, ...], ids shared) step every chain in the same ops,
+    each chain exactly as a one-chain call on its slices."""
+    lead = n_dk.shape[0] if n_dk.dim() == 3 else 1
+    s = sample_scores(n_dk, n_wk, n_k, noise, d, w, z, alpha=alpha,
+                      eta=eta, v_eta=v_eta, use_gumbel=use_gumbel,
+                      work=_workspace((lead, d.shape[0], n_dk.shape[-1]),
+                                      n_dk.device))
+    z_new = torch.where(mask > 0, first_argmax(s), z)
+    move_counts_(n_dk, n_wk, n_k, d, w, z, z_new)
     z.copy_(z_new)
 
 

@@ -8,9 +8,11 @@ deltas, and the reference runs its dp=1 fast path
 (`superstep_dp1_fn`, `sharded_gibbs.py:724`, engaged at `:812`): the
 single-device sweep (`lda_gibbs.make_sweep_kernel`) over the blocked
 layout that `shard_corpus` lays down, with C chains under `vmap`. The
-port runs exactly that: each block step is ONE call of kernel K1
-(`lda_gibbs.block_step` → `gibbs_block_step_`) for every chain, on the
-strided view z[:, i] of the [C, n_blocks, B] state.
+port runs exactly that (`lda_gibbs.sweep`): each block step of the
+dense arm is ONE call of kernel K1 (`lda_gibbs.block_step` →
+`gibbs_block_step_`) for every chain, on the strided view z[:, i] of
+the [C, n_blocks, B] state; the sparse arm's block step serves every
+chain in the same ops and launches no K1.
 
 What is the reference's, bit for bit, on the same corpus and seed:
 - the layout (`shard_corpus`, copied line for line): documents in
@@ -29,7 +31,8 @@ What is the reference's, bit for bit, on the same corpus and seed:
 
 Random numbers come from a noise source that `fit` takes (`TorchNoise`
 on the device by default; one draw a block for every chain, shaped
-[C, B, K]). The reference keys chain c with
+[C, B, K], or [C, n_mh, B, 3] for the sparse arm). The reference keys
+chain c with
 `split(PRNGKey(seed), C)[c]` (`sharded_gibbs.py:914`) and splits it once
 a block; the tests replay that schedule through the same interface and
 compare the two engines draw for draw.
@@ -185,15 +188,12 @@ class ShardedGibbsLDA:
         nwk_form = None if config.nwk_form == "auto" else config.nwk_form
         if nwk_form is None:
             nwk_form = lda_gibbs.env_nwk_form()
-        self.sampler_form, self.sparse_active, _ = lda_gibbs.resolve_sampler(
-            config, k_topics=config.n_topics, backend=self.device.type,
-            nwk_form=nwk_form)
-        if self.sampler_form == "sparse":
-            raise not_ported(
-                f"the sparse sampler (lda.sampler_form="
-                f"{config.sampler_form!r} resolves to 'sparse' at K="
-                f"{config.n_topics} on {self.device.type})",
-                "slice 4 (sparse sampler)")
+        # Resolved once, as the reference does; the dp=1 fast path runs
+        # the resolved arm through the shared sweep (`lda_gibbs.sweep`).
+        self.sampler_form, self.sparse_active, self.sampler_kw = \
+            lda_gibbs.resolve_sampler(config, k_topics=config.n_topics,
+                                      backend=self.device.type,
+                                      nwk_form=nwk_form)
         if sampler is None:
             self.use_gumbel = self.device.type != "cpu"
         elif sampler in ("gumbel", "race"):
@@ -389,7 +389,8 @@ class ShardedGibbsLDA:
             st = lda_gibbs.superstep(
                 st, docs, words, mask, alpha=cfg.alpha, eta=cfg.eta,
                 n_vocab=self.n_vocab, burn_in=cfg.burn_in, start_sweep=s0,
-                n_steps=n_steps, noise=noise, use_gumbel=self.use_gumbel)
+                n_steps=n_steps, noise=noise, use_gumbel=self.use_gumbel,
+                **self.sampler_kw)
             ll = ll_of(st)
             return (st, ll0, ll) if with_initial_ll else (st, ll)
 

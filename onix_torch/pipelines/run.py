@@ -1,16 +1,19 @@
 """The scoring run: one day of one datatype, end to end — the port of
-`onix/pipelines/run.py` with the Gibbs engine.
+`onix/pipelines/run.py`.
 
 Read the day's partition from the store, create words, build the corpus
-(applying analyst feedback ×DUPFACTOR), fit the collapsed-Gibbs LDA on
-the device, score every raw event, and write the per-day results CSV,
-the clients CSV and a run manifest. `engine="sharded"` fits with the
-sharded engine on a 1×1 mesh (`parallel/sharded_gibbs.py`). The files
-keep the reference's schema; the manifest adds `device` (the torch
-device and card name) and `kernel_launches` (K1 launches during the
-fit), and with
-`lda.checkpoint_every > 0` also `checkpoint` (the sweep the fit resumed
-from and the walls of the load and of each save).
+(applying analyst feedback ×DUPFACTOR), fit the LDA on the device,
+score every raw event, and write the per-day results CSV, the clients
+CSV and a run manifest. The engines: "gibbs" (collapsed Gibbs,
+`models/lda_gibbs.py`), "sharded" (the sharded engine on a 1×1 mesh,
+`parallel/sharded_gibbs.py`) and "svi" (online variational Bayes over
+document minibatches, `models/lda_svi.py`). The files keep the
+reference's schema; the manifest adds `device` (the torch device and
+card name) and `kernel_launches` (K1 launches during the fit: 0 for svi
+and for the sparse sampler), with `lda.checkpoint_every > 0` also
+`checkpoint` (the sweep the fit resumed from and the walls of the load
+and of each save), and for svi `svi` (the E-step iterations of every
+minibatch update, epoch by epoch).
 
 A day of `COLUMNAR_AUTO_MIN_ROWS` rows or more (or any day under
 `pipeline.columnar="on"`) is read column by column
@@ -29,7 +32,6 @@ import numpy as np
 import pandas as pd
 import torch
 
-from onix_torch import not_ported
 from onix_torch.config import OnixConfig
 from onix_torch.device import describe, resolve_device
 from onix_torch.models import sample_count
@@ -72,15 +74,15 @@ def fit_engine(cfg: OnixConfig, bundle: CorpusBundle, engine: str,
     """Fit theta/phi_wk with the requested engine on the bundle's
     corpus: "gibbs" (`GibbsLDA`) or "sharded" (`ShardedGibbsLDA` on the
     mesh of `cfg.mesh`, which must be 1×1), each with any
-    `lda.n_chains` (θ [C, D, K] and φ_wk [C, V, K] for C > 1); "svi"
-    raises NotImplementedError."""
+    `lda.n_chains` (θ [C, D, K] and φ_wk [C, V, K] for C > 1); or "svi"
+    (`fit_svi`, one chain)."""
     if engine not in ("gibbs", "sharded") and cfg.lda.n_chains > 1:
         raise ValueError(
             f"lda.n_chains={cfg.lda.n_chains} is only implemented for the "
             f"'gibbs' and 'sharded' engines; the {engine!r} engine would "
             "silently run one chain")
     if engine == "svi":
-        raise not_ported("the svi engine", "slice 3 (streaming and scale)")
+        return fit_svi(cfg, bundle, device)
     if engine not in ("gibbs", "sharded"):
         raise ValueError(f"unknown engine {engine!r}")
     corpus = bundle.corpus
@@ -107,6 +109,71 @@ def fit_engine(cfg: OnixConfig, bundle: CorpusBundle, engine: str,
     fit = model.fit(corpus, checkpoint_dir=ck_dir)
     return {key: fit[key] for key in
             ("theta", "phi_wk", "ll_history", "checkpoint") if key in fit}
+
+
+def fit_svi(cfg: OnixConfig, bundle: CorpusBundle,
+            device: torch.device) -> dict:
+    """The svi engine (the reference's `fit_engine`, `run.py:90-146`):
+    document minibatches of `lda.svi_batch_size` in a
+    `default_rng(seed).permutation` of the documents, every batch padded
+    to one token shape; epochs until the predictive mean log-likelihood's
+    relative gain falls under `lda.svi_epoch_tol` (cap
+    `lda.svi_max_epochs`); the best-ll parameters are returned. "svi"
+    holds the E-step iteration counts of every update, epoch by
+    epoch."""
+    from onix_torch.models.lda_svi import SVILda, make_minibatch, phi_estimate
+    corpus = bundle.corpus
+    model = SVILda(cfg.lda, corpus.n_vocab, corpus.n_docs, device=device)
+    state = model.init()
+    rng = np.random.default_rng(cfg.lda.seed)
+    # Document minibatches: group tokens by doc, batch whole docs.
+    order = np.argsort(corpus.doc_ids, kind="stable")
+    d_sorted = corpus.doc_ids[order]
+    w_sorted = corpus.word_ids[order]
+    bounds = np.searchsorted(d_sorted, np.arange(corpus.n_docs + 1))
+    bs_docs = min(cfg.lda.svi_batch_size, corpus.n_docs)
+    doc_perm = rng.permutation(corpus.n_docs)
+    doc_batches = [doc_perm[i:i + bs_docs]
+                   for i in range(0, corpus.n_docs, bs_docs)]
+    tok_sel = [np.concatenate([np.arange(bounds[d], bounds[d + 1])
+                               for d in b]) for b in doc_batches]
+    pad_to = max(int(s.size) for s in tok_sel)
+    gamma_by_doc = np.full((corpus.n_docs, cfg.lda.n_topics),
+                           cfg.lda.alpha, np.float32)
+    ll_history: list[tuple[int, float]] = []
+    estep_iters: list[list[int]] = []
+    prev_ll = -np.inf
+    # An epoch can regress the full-corpus ll: keep the best-ll
+    # parameters.
+    best = None
+    for epoch in range(cfg.lda.svi_max_epochs):
+        stats: dict = {}
+        for sel in tok_sel:
+            if sel.size == 0:
+                continue
+            batch = make_minibatch(d_sorted[sel], w_sorted[sel],
+                                   pad_to=pad_to, pad_docs=bs_docs,
+                                   device=device)
+            state, gamma = model.update(state, batch, stats=stats)
+            gm = gamma.cpu().numpy()
+            dm = batch.doc_map.cpu().numpy()
+            real = dm >= 0
+            gamma_by_doc[dm[real]] = gm[real]
+        estep_iters.append(stats.get("iters", []))
+        theta = gamma_by_doc / gamma_by_doc.sum(1, keepdims=True)
+        phi_wk = phi_estimate(state).cpu().numpy()
+        tok_p = score_all(theta, phi_wk, corpus.doc_ids, corpus.word_ids,
+                          device=device)
+        ll = float(np.log(np.maximum(tok_p, 1e-30)).mean())
+        ll_history.append((epoch, ll))
+        if best is None or ll > best[0]:
+            best = (ll, theta, phi_wk)
+        if ll - prev_ll < cfg.lda.svi_epoch_tol * abs(prev_ll):
+            break
+        prev_ll = ll
+    _, theta, phi_wk = best
+    return {"theta": theta, "phi_wk": phi_wk, "ll_history": ll_history,
+            "svi": {"estep_iters": estep_iters}}
 
 
 def run_scoring(cfg: OnixConfig, engine: str = "gibbs",
@@ -280,8 +347,9 @@ def run_scoring(cfg: OnixConfig, engine: str = "gibbs",
     }
     if model_saved is not None:
         manifest["model_saved"] = model_saved
-    if "checkpoint" in fit:
-        manifest["checkpoint"] = fit["checkpoint"]
+    for key in ("checkpoint", "svi"):
+        if key in fit:
+            manifest[key] = fit[key]
     # Resilience events tallied during this run (salvage skips, injected
     # faults, checkpoint digest mismatches) — absent on a clean run.
     resil = {**counters.snapshot("salvage"), **counters.snapshot("faults"),

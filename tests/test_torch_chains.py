@@ -77,6 +77,9 @@ class ChainReplayNoise:
     def block(self, b, k, use_gumbel):
         return torch.stack([c.block(b, k, use_gumbel) for c in self.chains])
 
+    def sparse_block(self, n_mh, b):
+        return torch.stack([c.sparse_block(n_mh, b) for c in self.chains])
+
     def get_state(self):
         """The chains' current keys, [C, 2]: the reference's chained
         checkpoint `key`."""

@@ -53,6 +53,14 @@ class JaxReplayNoise:
                                    minval=1e-38)
         return torch.from_numpy(np.array(x))
 
+    def sparse_block(self, n_mh, b):
+        """The sparse arm's draw, at the same key position:
+        `uniform(skey, (n_mh, b, 3), minval=1e-38)`
+        (`make_sparse_block_step`)."""
+        self.key, skey = jax.random.split(self.key)
+        return torch.from_numpy(np.array(jax.random.uniform(
+            skey, (n_mh, b, 3), dtype=jnp.float32, minval=1e-38)))
+
     def get_state(self):
         """The current key: what the reference's checkpoint saves as
         `key`."""
@@ -259,12 +267,15 @@ def test_fit_callback_sees_every_sweep(corpus):
 ])
 def test_settings_outside_the_slice_raise(field, value):
     cfg = LDAConfig(**{field: value})
+    model = tg.GibbsLDA(cfg, 10, 10, device="cpu")
     if field == "checkpoint_every":
         # Ported: checkpoint resume runs (tests/test_torch_checkpoint.py).
-        assert tg.GibbsLDA(cfg, 10, 10, device="cpu").sampler_form == "dense"
+        assert model.sampler_form == "dense"
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tg.GibbsLDA(cfg, 10, 10, device="cpu")
+    # Ported: the sparse sampler runs (tests/test_torch_sparse.py).
+    assert (model.sampler_form, model.sparse_active) == ("sparse", 8)
+    assert model.sampler_kw == dict(sampler_form="sparse", sparse_active=8,
+                                    sparse_mh=2)
 
 
 @pytest.mark.parametrize("k,form,env,want", [
@@ -275,9 +286,8 @@ def test_settings_outside_the_slice_raise(field, value):
 def test_sampler_form_resolves_as_the_reference(monkeypatch, k, form, env,
                                                 want):
     """F7: the reference resolves auto to the sparse sampler on the CPU
-    from K = 64; so does the port, which then refuses (slice 4). An
-    explicit form or ONIX_SAMPLER_FORM decides first, as in the
-    reference."""
+    from K = 64; so does the port, which then runs it. An explicit form
+    or ONIX_SAMPLER_FORM decides first, as in the reference."""
     if env is None:
         monkeypatch.delenv("ONIX_SAMPLER_FORM", raising=False)
     else:
@@ -288,11 +298,7 @@ def test_sampler_form_resolves_as_the_reference(monkeypatch, k, form, env,
     cfg = LDAConfig(n_topics=k, sampler_form=form)
     got = tg.resolve_sampler(cfg, k_topics=k, backend="cpu")
     assert got[0] == want
-    if want == "sparse":
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            tg.GibbsLDA(cfg, 10, 10, device="cpu")
-    else:
-        assert tg.GibbsLDA(cfg, 10, 10, device="cpu").sampler_form == want
+    assert tg.GibbsLDA(cfg, 10, 10, device="cpu").sampler_form == want
 
 
 def test_sampler_form_auto_stays_dense_on_the_card(monkeypatch):

@@ -63,6 +63,9 @@ class ShardedReplayNoise:
     def block(self, b, k, use_gumbel):
         return torch.stack([c.block(b, k, use_gumbel) for c in self.chains])
 
+    def sparse_block(self, n_mh, b):
+        return torch.stack([c.sparse_block(n_mh, b) for c in self.chains])
+
     def get_state(self):
         return np.stack([c.get_state() for c in self.chains])
 
@@ -357,8 +360,17 @@ def test_shard_map_arm_raises(corpus, monkeypatch):
 
 
 def test_sparse_sampler_raises(corpus):
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        port_model(corpus, sampler_form="sparse")
+    """The sparse sampler no longer raises: the engine resolves it once
+    and its fit runs it (held to the reference draw for draw in
+    tests/test_torch_sparse.py); it launches no K1."""
+    model = port_model(corpus, sampler_form="sparse", sparse_active=2)
+    assert (model.sampler_form, model.sparse_active) == ("sparse", 2)
+    before = tsc.launches
+    fit = model.fit(port_corpus(corpus))
+    assert tsc.launches == before
+    st = fit["state"]
+    assert int(st.n_k.sum()) == corpus.n_tokens
+    assert int(st.n_dk.min()) >= 0 and int(st.n_wk.min()) >= 0
 
 
 def test_run_scoring_sharded_refuses_a_wider_mesh(tmp_path):
