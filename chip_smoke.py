@@ -99,6 +99,34 @@ non-zero and prints no result line):
              byte-identical results and clients CSVs, no K1 launch,
              2 to lda.svi_max_epochs epochs, recall >= 0.5; epochs,
              E-step iterations a batch, fit and stage walls.
+11. stream — the streaming path: (a) the reference's protocol
+             (bench.py bench_streaming): 10 batches of 100,000 flow
+             events, a warm feed (seeds 500+) then a timed one (900+),
+             2^12 buckets, the default config, one arm per batch and one
+             at supersteps of 5: winner sets identical per batch, device
+             words on every timed batch, no K1 or K2 launch; events/s,
+             stage walls, dispatches, E-step iterations and pad shapes
+             of each arm; (b) the timed feed again under
+             serving.serve_form=fused: one K2 launch a batch, winners
+             and order equal to the host tail's, scores within 8 ulps;
+             then 3 benign labels from batch 9's alerts (apply_feedback,
+             immediate) and batch 9 once more through both tails: K2's
+             token_words mode, both tails equal, the dismissed pairs
+             gone; K2 at that shape against its plain version, timed
+             beside torch.topk, with its byte bound; (c) the phase-5 day
+             as 4 NetFlow v5 files through `onix_torch.cli stream flow
+             --epochs 2` at 2^15 buckets: no K1 launch, the alert CSV
+             written, the share of planted events alerted in their own
+             file in epoch 2 >= the reference's less 0.05
+             (STREAM_REF_SHARE); events/s, prefetch mode, stage walls;
+             (d) `ingest flow` of the same files into a fresh store,
+             then `score`: 10^6 rows, 60 x ceil(N / 65,536) K1
+             launches, recall >= 0.5; (e) phase 9 (d)'s day without
+             ONIX_HOST_WORDS: words_mode "device", the winners equal to
+             the host arm's outside the f32 bin-edge band (its events
+             counted and printed), the host arm's count of planted
+             anomalies among them, and at least the reference's
+             streamed share less 0.05 (SCALE_STREAMED_REF_SHARE).
 
 The last lines of standard output are the card's name and power limit,
 a `{"kernels": [...]}` line, and `{"ok": true, "device": {...}}`.
@@ -1917,7 +1945,9 @@ def phase_scale(card: str, root: pathlib.Path, table, planted,
                 n_events: int = SCALE_EVENTS,
                 n_train: int = SCALE_TRAIN) -> dict:
     """The scale day and the sharded engine on the card; see the module
-    docstring. Returns the scale entries of the kernels line's rows."""
+    docstring. Returns the scale entries of the kernels line's rows, and
+    (d)'s host words arm: its winners (event ids, scores) and its count
+    of planted anomalies among them."""
     import os
 
     import numpy as np
@@ -2118,7 +2148,8 @@ def phase_scale(card: str, root: pathlib.Path, table, planted,
         torch.cuda.synchronize()
         sample_count.launches = 0
         t0 = time.perf_counter()
-        md = scale.run_scale(n_events, train_events=n_train)
+        with Calls(scale, "_stream_score") as host_arm:
+            md = scale.run_scale(n_events, train_events=n_train)
         wall = time.perf_counter() - t0
     finally:
         if saved is None:
@@ -2144,7 +2175,32 @@ def phase_scale(card: str, root: pathlib.Path, table, planted,
                        m["n_docs"], 0, True, seed=61)
     k1_row.update(B=SCALE_BLOCK, launches=launches_b,
                   launches_score_sharded=launches_a)
-    return {"sample_count": k1_row, "fused_serve": k2_row}
+    return ({"sample_count": k1_row, "fused_serve": k2_row},
+            (host_arm.calls[-1][2], md["planted_in_bottom_k"]))
+
+
+class Calls:
+    """Keeps every call of the function `owner.name` while the block
+    runs, as (args, kwargs, result) in `calls`: what `run_scale`
+    selects (`scale._stream_score`), or what the stream tail hands K2
+    (`fused_serve.fused_stream_tail`)."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name, self.calls = owner, name, []
+
+    def __enter__(self):
+        self.real = getattr(self.owner, self.name)
+
+        def call(*a, **kw):
+            out = self.real(*a, **kw)
+            self.calls.append((a, kw, out))
+            return out
+        setattr(self.owner, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.real)
+        return False
 
 
 # -- phase 10 ---------------------------------------------------------------
@@ -2359,6 +2415,437 @@ def phase_sparse_svi(card: str, root: pathlib.Path, table, planted,
     return launches
 
 
+# -- phase 11 ---------------------------------------------------------------
+
+# (a) and (b): the reference's streaming protocol (bench.py
+# bench_streaming): 10 batches of 100,000 flow events a feed, a warm feed
+# from seed 500 and a timed one from seed 900, 2^12 buckets, the default
+# config; one arm per batch, one at supersteps of 5.
+STREAM_BATCHES, STREAM_EVENTS, STREAM_HOSTS, STREAM_PLANTS = 10, 100_000, \
+    400, 8
+STREAM_BUCKETS, STREAM_SUPERSTEP = 1 << 12, 5
+STREAM_ULPS = 8 * 2.0 ** -23       # the serving tests' score bound
+# (c): the phase-5 day as 4 NetFlow v5 files through `stream --epochs 2`
+# at the default 2^15 buckets. The bar is the reference's share of the
+# planted events alerted in their own file in the last epoch on the same
+# files: its `run_stream` at the default config (JAX 0.9.0 on an 8-core
+# x86 CPU host) gave 996 of 1,000; `ONIX_JUDGED=1 JAX_PLATFORMS=cpu
+# python -m pytest tests/test_torch_streaming.py -k reference_stream_share
+# -s` reruns it.
+STREAM_FILES = 4
+STREAM_REF_SHARE = 0.996
+STREAM_SHARE_SLACK = 0.05
+# (e): a streamed scale day (fitted on a prefix, scored in chunks) finds
+# fewer of its planted anomalies than a day fitted on all its events
+# (phase 9 (b)'s bar, 0.8): the reference's own streamed 10^7-event flow
+# run with device words found 737 of 1,000 (docs/SCALE_1E7_r06_flow.json:
+# JAX on a CPU host, fitted on the first 10^6 events). The device words
+# arm is held to the host words arm's count, and to that share less
+# the slack.
+SCALE_STREAMED_REF_SHARE = 0.737
+
+
+def stream_feed(seed0: int) -> list:
+    from onix_torch.pipelines.synth import synth_flow_day
+    return [synth_flow_day(STREAM_EVENTS, n_hosts=STREAM_HOSTS,
+                           n_anomalies=STREAM_PLANTS, seed=seed0 + b)[0]
+            for b in range(STREAM_BATCHES)]
+
+
+def stream_arm(card: str, warm, timed, superstep: int, form: str):
+    """A scorer at the default config warmed on `warm`, then timed on
+    `timed`: (scorer, results, wall seconds, dispatch deltas, K2
+    launches of the timed feed)."""
+    import torch
+
+    from onix_torch.config import OnixConfig
+    from onix_torch.models import fused_serve as fs
+    from onix_torch.pipelines.streaming import StreamingScorer
+    cfg = OnixConfig()
+    cfg.pipeline.stream_superstep = superstep
+    cfg.serving.serve_form = form
+    sc = StreamingScorer(cfg.validate(), "flow", n_buckets=STREAM_BUCKETS)
+    sc.process_many([(t, None) for t in warm])
+    for key in sc.stage_walls:
+        sc.stage_walls[key] = 0.0
+    base = dict(sc.dispatches)
+    words0 = dict(sc.words_mode_batches)
+    iters0 = len(sc.estep_stats["iters"])
+    torch.cuda.synchronize()
+    fs.launches = 0
+    t0 = time.perf_counter()
+    results = sc.process_many([(t, None) for t in timed])
+    wall = time.perf_counter() - t0
+    k2 = fs.launches
+    disp = {k: v - base[k] for k, v in sc.dispatches.items()}
+    words = {k: v - words0[k] for k, v in sc.words_mode_batches.items()}
+    if words != {"device": len(timed), "host": 0}:
+        raise AssertionError(f"stream (S={superstep}, {form}): words arm "
+                             f"{words} on the timed feed, want device on "
+                             "every batch")
+    n = sum(r.n_events for r in results)
+    say(card, f"stream (a) S={superstep} tail={form}: {n / wall:.1f} "
+              f"events/s over {len(timed)} batches of {STREAM_EVENTS} "
+              f"({wall:.3f} s); stage walls "
+              f"{json.dumps({k: round(v, 4) for k, v in sc.stage_walls.items()})}"
+              f"; dispatches {json.dumps(disp)}; E-step iterations a batch "
+              f"{sc.estep_stats['iters'][iters0:]}; pad shapes "
+              f"{sorted(sc.pad_shapes)}, superstep shapes "
+              f"{sorted(sc.superstep_shapes)}; alerts a batch "
+              f"{[len(r.alerts) for r in results]}; K2 launches {k2}")
+    return sc, results, wall, disp, k2
+
+
+def pairs_of(alerts):
+    from onix_torch.feedback.filter import pack_pair
+    from onix_torch.pipelines.words import str_to_ip
+    return set(pack_pair(str_to_ip(alerts["sip"]),
+                         str_to_ip(alerts["dip"])).tolist())
+
+
+def tail_timing(card: str, label: str, call, n_events: int) -> dict:
+    """K2 at the stream tail's shape, from one recorded
+    `fused_stream_tail` call: the kernel against its plain version on
+    the same tensors (exact), their times, torch.topk of the screened
+    event scores, and the byte bound."""
+    import torch
+
+    from onix_torch.models import fused_serve as fs
+    (src, dst, w_src, w_dst, ph, pl, filt), kw = call[0][:7], call[1]
+    args = ((src, dst), None,
+            None if filt is None else (w_src, w_dst),
+            None if filt is None else (ph, pl), filt, kw["tol"])
+    k2_kw = dict(mode="min2", max_results=kw["max_results"],
+                 token_words=True, return_scores=True)
+    kern_top, kern_ev = fs.fused_call(*args, **k2_kw)
+    plain_top, plain_ev = fs.fused_call_plain(*args, **k2_kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(kern_top.indices, plain_top.indices)
+            and torch.equal(kern_top.scores, plain_top.scores)
+            and torch.equal(kern_ev, plain_ev)):
+        raise AssertionError(f"stream tail ({label}): K2 differs from its "
+                             "plain version")
+    fin = torch.isfinite(plain_top.scores)
+    err = float(torch.where(fin, (kern_top.scores - plain_top.scores).abs(),
+                            torch.zeros_like(plain_top.scores)).max())
+    tol = torch.tensor(kw["tol"], dtype=torch.float32, device=src.device)
+    screened = torch.where(plain_ev < tol, plain_ev,
+                           torch.full_like(plain_ev, float("inf")))
+    m = kw["max_results"]
+    times = {"ms": event_ms(lambda: fs.fused_call(*args, **k2_kw)),
+             "plain_ms": event_ms(lambda: fs.fused_call_plain(*args,
+                                                             **k2_kw)),
+             "topk_ms": event_ms(lambda: torch.topk(screened, m,
+                                                    largest=False,
+                                                    sorted=True))}
+    bound_ms, bound_by, nbytes, ops = k2_bound(
+        dict(ops=(src, dst), mask=None, mode="min2", filt=filt,
+             token_words=True, return_scores=True, max_results=m,
+             shape=(1, n_events)), n_events)
+    say(card, f"stream tail K2 ({label}): N={n_events}, M={m}, "
+              f"{fs.kernel_form(1, n_events, m)} form, equal to plain; "
+              f"K2 {times['ms']:.5f} ms, plain {times['plain_ms']:.5f} ms, "
+              f"torch.topk of the screened scores {times['topk_ms']:.5f} ms "
+              f"(CUDA events, median of 30); bound {bound_ms:.5f} ms by "
+              f"{bound_by} ({nbytes} B, {ops} ops)")
+    return {"N": n_events, "M": m, "filtered": filt is not None,
+            "form": fs.kernel_form(1, n_events, m), "max_abs_err": err,
+            **times, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def write_day_files(table, out: pathlib.Path) -> list:
+    """The day as STREAM_FILES NetFlow v5 files, in event order. The
+    exporter's uptime spans two days, so every flow's offset from it
+    is positive and the decoded times are the day's."""
+    import numpy as np
+
+    from onix_torch.ingest.nfdecode import write_v5
+    out.mkdir(parents=True, exist_ok=True)
+    epoch = (np.asarray(table["treceived"], dtype="datetime64[s]")
+             .astype(np.int64).astype(np.float64))
+    table = table.assign(start_ts=epoch, end_ts=epoch + 10.0)
+    per = len(table) // STREAM_FILES
+    paths = []
+    for f in range(STREAM_FILES):
+        p = out / f"day_{f}.nf5"
+        p.write_bytes(write_v5(table.iloc[f * per:(f + 1) * per]
+                               .reset_index(drop=True),
+                               sys_uptime_ms=172_800_000))
+        paths.append(str(p))
+    return paths
+
+
+def stream_share(log: str, results: pathlib.Path, planted,
+                 n_events: int) -> float:
+    """The share of the planted events that a two-epoch `stream flow`
+    run over the day's STREAM_FILES files alerted in their own file in
+    the last epoch, from its output (`log`: the alerts of each file, in
+    file order) and its alert CSV under `results` (appended in that
+    order, each file's `event_idx` local to it)."""
+    import pandas as pd
+    counts = [int(c) for c in re.findall(
+        r"^\[epoch 1\] .*?: \d+ events, (\d+) alerts", log, re.M)]
+    csv = pd.read_csv(results / "20160708" / "flow_streaming.csv")
+    if len(counts) != STREAM_FILES or sum(counts) != len(csv) or not len(csv):
+        raise AssertionError(f"stream: {counts} alerts a file against "
+                             f"{len(csv)} CSV rows")
+    hits, off = set(), 0
+    per_file = n_events // STREAM_FILES
+    for f, c in enumerate(counts):
+        block = csv["event_idx"].to_numpy()[off:off + c]
+        hits |= set((block + f * per_file).tolist())
+        off += c
+    return len(hits & set(planted.tolist())) / len(planted)
+
+
+def band_events(md: dict, n_events: int, n_train: int):
+    """The streamed chunks' events whose device word differs from the
+    host word (the f32-vs-f64 bin-edge band of device_words.py), with
+    the largest distance, in f32 ulps, of such an event's binned value
+    from its nearest edge. Returns (global event ids, max ulps)."""
+    import numpy as np
+    import torch
+
+    from onix_torch.pipelines import device_words as dw
+    from onix_torch.pipelines import scale
+    from onix_torch.pipelines.corpus_build import build_corpus
+    from onix_torch.pipelines.synth import SYNTH_ARRAYS
+    n_hosts = md["n_hosts"]
+    cols = SYNTH_ARRAYS["flow"](n_train, n_hosts=n_hosts,
+                                n_anomalies=scale._default_anomalies(n_train),
+                                seed=md["seed"])
+    wt = scale._words_from_cols("flow", cols)
+    bundle = build_corpus(wt)
+    edges = wt.edges
+    v_x, d_x = bundle.corpus.n_vocab + 1, bundle.corpus.n_docs + 1
+    n_chunks = -(-n_events // n_train)
+    per_chunk = max(1, scale._default_anomalies(n_events) // n_chunks)
+    band, worst = [], 0.0
+    # (column, edge name, log1p-binned)
+    feats = (("hour", "hour", False), ("ibyt", "log_ibyt", True),
+             ("ipkt", "log_ipkt", True))
+    for c in range(1, n_chunks):
+        m = min(n_train, n_events - c * n_train)
+        cc = SYNTH_ARRAYS["flow"](m, n_hosts=n_hosts, n_anomalies=per_chunk,
+                                  seed=md["seed"] + 1000 * c)
+        wt2 = scale._words_from_cols("flow", cc, edges=edges)
+        host = (bundle.doc_ids_u32(wt2.ip_u32, fill=d_x - 1) * np.int64(v_x)
+                + bundle.word_ids_packed(wt2.word_key, fill=v_x - 1))
+        tables = dw.build_flow_tables(bundle, edges,
+                                      list(cc["proto_classes"]), "cuda")
+        st = dw.stage_flow_cols(cc, "cuda")
+        ds, dd = dw._flow_flat_idx(
+            tables, v_x, v_x - 1, d_x - 1, st["sip_u32"], st["dip_u32"],
+            st["sport"], st["dport"], st["proto_id"], st["hour"],
+            st["ibyt"], st["ipkt"])
+        dev = torch.cat([ds, dd]).cpu().numpy()
+        off = np.flatnonzero((dev != host)[:m] | (dev != host)[m:])
+        band.extend((off + c * n_train).tolist())
+        if len(off):
+            ulps = np.full(len(off), np.inf)
+            for col, name, log in feats:
+                x = np.asarray(cc[col], np.float32)[off]
+                x = np.log1p(x) if log else x
+                e = np.asarray(edges[name], np.float32)
+                gap = np.abs(x[:, None] - e[None, :]).min(axis=1)
+                ulps = np.minimum(ulps, gap / np.spacing(np.abs(x)))
+            worst = max(worst, float(ulps.max()))
+        del cc, wt2, host, dev, st
+    return set(band), worst
+
+
+def phase_stream(card: str, root: pathlib.Path, table, planted,
+                 host_arm) -> dict:
+    """The streaming path on the card: see the module docstring.
+    `host_arm` is phase 9 (d)'s (winners, planted among them). Returns
+    the stream-tail entry of K2's row in the kernels line."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from onix_torch import cli
+    from onix_torch.models import fused_serve as fs
+    from onix_torch.models import sample_count
+    from onix_torch.pipelines import scale
+    from onix_torch.store import Store
+    torch.cuda.synchronize()
+    sample_count.launches = fs.launches = 0
+    # (a) the protocol's two arms.
+    warm, timed = stream_feed(500), stream_feed(900)
+    per, res_1, wall_1, _, k2_1 = stream_arm(card, warm, timed, 1, "xla")
+    _, res_s, wall_s, disp_s, k2_s = stream_arm(card, warm, timed,
+                                                STREAM_SUPERSTEP, "xla")
+    for b, (x, y) in enumerate(zip(res_1, res_s)):
+        if set(x.alerts["event_idx"]) != set(y.alerts["event_idx"]):
+            raise AssertionError(f"stream (a): batch {b}'s winner sets "
+                                 "differ between the arms")
+    if disp_s["superstep"] != STREAM_BATCHES // STREAM_SUPERSTEP or \
+            disp_s["svi_update"] or disp_s["score"]:
+        raise AssertionError(f"stream (a): superstep dispatches {disp_s}")
+    check_launches("stream (a): K1", sample_count.launches, 0)
+    check_launches("stream (a): K2", k2_1 + k2_s, 0)
+    say(card, f"stream (a): winner sets identical per batch; superstep "
+              f"{wall_1 / wall_s:.3f}x the per-batch arm's rate; K1 "
+              "launches 0, K2 launches 0")
+
+    # (b) the fused tail: K2 once a batch, the host tail's answers.
+    with Calls(fs, "fused_stream_tail") as tails:
+        fused, res_f, _, _, n_k2 = stream_arm(card, warm, timed, 1, "fused")
+        check_launches("stream (b): K2", n_k2, STREAM_BATCHES)
+        for b, (x, y) in enumerate(zip(res_1, res_f)):
+            xi, yi = (r.alerts["event_idx"].to_numpy() for r in (x, y))
+            rel = np.abs(y.scores - x.scores) / np.abs(x.scores)
+            if not np.array_equal(xi, yi) or rel.max() > STREAM_ULPS:
+                raise AssertionError(f"stream (b): batch {b}: the fused "
+                                     "tail's winners or scores differ from "
+                                     "the host tail's")
+        plain_call = tails.calls[-1]
+        # Feedback: 3 benign labels from batch 9's alerts, immediate,
+        # then batch 9 once more through both tails.
+        rows = res_f[-1].alerts.head(3).drop(columns=["score", "event_idx"])
+        dismissed = pairs_of(rows)
+        for sc in (per, fused):
+            sc.apply_feedback(rows, [3, 3, 3], immediate=True, online=False)
+        fs.launches = 0
+        again_x = per.process(timed[-1])
+        again_f = fused.process(timed[-1])
+        check_launches("stream (b) filtered: K2", fs.launches, 1)
+        n_k2 += 1
+    filt_call = tails.calls[-1]
+    if filt_call[0][6] is None or fused.noise_filter is None:
+        raise AssertionError("stream (b): the filtered batch did not run "
+                             "K2's token_words mode")
+    if not (np.array_equal(again_x.scores, again_f.scores)
+            and again_x.alerts["event_idx"].tolist()
+            == again_f.alerts["event_idx"].tolist()):
+        raise AssertionError("stream (b): the two tails disagree under the "
+                             "filter")
+    if not dismissed <= pairs_of(res_f[-1].alerts) or \
+            dismissed & pairs_of(again_f.alerts):
+        raise AssertionError("stream (b): the dismissed pairs did not leave "
+                             "the winners")
+    say(card, f"stream (b): tail=fused: {n_k2 - 1} K2 launches for "
+              f"{STREAM_BATCHES} batches, winners and order equal to the "
+              f"host tail's, scores within {STREAM_ULPS:.3g} relative; "
+              f"3 benign labels installed ({fused.feedback_stats}); batch "
+              f"9 again: token_words mode, both tails equal, "
+              f"{len(dismissed)} dismissed pairs gone from "
+              f"{len(again_f.alerts)} winners")
+    tail_rows = [tail_timing(card, "no filter", plain_call, STREAM_EVENTS),
+                 tail_timing(card, "filtered", filt_call, STREAM_EVENTS)]
+    del warm, timed, res_1, res_s, res_f, per, fused
+
+    # (c) the CLI over raw files, two epochs.
+    files = write_day_files(table, root / "stream_files")
+    store = root / "stream_store"
+    torch.cuda.synchronize()
+    sample_count.launches = fs.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["stream", "flow", *files, "--epochs", "2", "-s",
+                       f"store.root={store}", "-s",
+                       f"store.results_dir={store / 'results'}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log = out.getvalue()
+    print(log, end="", flush=True)
+    if rc != 0:
+        raise AssertionError(f"onix_torch stream exited {rc}")
+    check_launches("stream (c): K1", sample_count.launches, 0)
+    check_launches("stream (c): K2", fs.launches, 0)   # "auto" is the host
+    share = stream_share(log, store / "results", planted, len(table))
+    mode = re.search(r"stream prefetch: mode=(\w+)", log)
+    say(card, f"stream (c): onix_torch stream flow <{STREAM_FILES} v5 "
+              f"files> --epochs 2: {2 * len(table) / wall:.1f} events/s "
+              f"({wall:.2f} s, both epochs), prefetch mode "
+              f"{mode.group(1) if mode else 'none'}, K1 launches 0; "
+              f"planted events alerted in their own file in epoch 2: "
+              f"{share:.4f} (bar {STREAM_REF_SHARE} - {STREAM_SHARE_SLACK})")
+    if share < STREAM_REF_SHARE - STREAM_SHARE_SLACK:
+        raise AssertionError(f"stream (c): share {share}")
+
+    # (d) ingest the same files, then score the day.
+    istore = root / "ingest_store"
+    rc = cli.main(["ingest", "flow", *files, "-s", f"store.root={istore}"])
+    n_rows = len(Store(istore).read("flow", "2016-07-08"))
+    if rc != 0 or n_rows != len(table):
+        raise AssertionError(f"stream (d): ingest exited {rc} with {n_rows} "
+                             "rows")
+    torch.cuda.synchronize()
+    sample_count.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["score", "2016-07-08", "flow", "-s",
+                   f"store.root={istore}"])
+    wall = time.perf_counter() - t0
+    got = day_outputs(istore / "results")
+    man = got["manifest"]
+    check_launches("stream (d): K1", sample_count.launches,
+                   60 * math.ceil(man["n_tokens"] / 65_536))
+    res = pd.read_csv(istore / "results" / "20160708" / "flow_results.csv")
+    recall = len(set(res["event_idx"]) & set(planted.tolist())) / len(
+        planted)
+    say(card, f"stream (d): ingest flow <{STREAM_FILES} files>: {n_rows} "
+              f"rows; score 2016-07-08 flow: K1 launches "
+              f"{sample_count.launches}, wall {wall:.2f} s, stages "
+              f"{json.dumps(stage_walls(got))}, recall {recall:.4f} (bar "
+              f"{RECALL_BAR})")
+    if rc != 0 or recall < RECALL_BAR:
+        raise AssertionError(f"stream (d): score exited {rc}, recall "
+                             f"{recall}")
+
+    # (e) the scale run's device words arm against phase 9 (d)'s host arm.
+    saved = {k: os.environ.pop(k, None) for k in ("ONIX_HOST_WORDS",
+                                                  "ONIX_DEVICE_WORDS")}
+    try:
+        sample_count.launches = 0
+        t0 = time.perf_counter()
+        with Calls(scale, "_stream_score") as dev_arm:
+            me = scale.run_scale(SCALE_EVENTS, train_events=SCALE_TRAIN)
+        wall = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is not None:
+                os.environ[k] = v
+    if me["words_mode"] != "device":
+        raise AssertionError(f"stream (e): words_mode {me['words_mode']}")
+    band, worst = band_events(me, SCALE_EVENTS, SCALE_TRAIN)
+    (hi, hs), host_hits = host_arm
+    di, ds = dev_arm.calls[-1][2]
+    keep_h = np.array([i not in band for i in hi.tolist()], bool)
+    keep_d = np.array([i not in band for i in di.tolist()], bool)
+    n = min(keep_h.sum(), keep_d.sum())
+    if not (np.array_equal(hi[keep_h][:n], di[keep_d][:n])
+            and np.array_equal(hs[keep_h][:n], ds[keep_d][:n])):
+        raise AssertionError("stream (e): the device words arm's winners "
+                             "differ from the host arm's outside the band")
+    hits, n_planted = me["planted_in_bottom_k"], me["planted_anomalies"]
+    say(card, f"stream (e): run_scale({SCALE_EVENTS}, train_events="
+              f"{SCALE_TRAIN}) with device words: words_mode "
+              f"{me['words_mode']}, K1 launches {sample_count.launches}; "
+              f"walls {json.dumps(me['walls_seconds'])}; "
+              f"{me['events_per_second_end_to_end']} events/s end to end, "
+              f"{me['events_per_second_pipeline_only']} pipeline only; wall "
+              f"{wall:.2f} s; f32 edge band: {len(band)} events of the "
+              f"streamed chunks (largest distance from an edge "
+              f"{worst:.1f} ulps), {int((~keep_h).sum())} of the host "
+              f"arm's and {int((~keep_d).sum())} of the device arm's "
+              f"winners in it; the other winners equal in order and "
+              f"score; planted in the bottom {me['max_results']}: {hits} "
+              f"of {n_planted}, the host arm {host_hits} (bar: the host "
+              f"arm's, and {SCALE_STREAMED_REF_SHARE} - "
+              f"{STREAM_SHARE_SLACK} of them)")
+    if hits != host_hits or hits < (SCALE_STREAMED_REF_SHARE
+                                    - STREAM_SHARE_SLACK) * n_planted:
+        raise AssertionError(f"stream (e): {hits} of {n_planted} planted, "
+                             f"the host arm {host_hits}")
+    return {"launches": n_k2, **tail_rows[0], "filtered_tail": tail_rows[1]}
+
+
 def main() -> int:
     try:
         import torch
@@ -2403,14 +2890,19 @@ def main() -> int:
         phase_resilience(card, root, table, clean)
         say(card, f"phase 8 passed in {time.perf_counter() - t8:.1f} s")
         t9 = time.perf_counter()
-        for name, scale_row in phase_scale(card, root, table,
-                                           planted).items():
+        scale_rows, host_arm = phase_scale(card, root, table, planted)
+        for name, scale_row in scale_rows.items():
             rows[name]["scale"] = scale_row
         say(card, f"phase 9 passed in {time.perf_counter() - t9:.1f} s")
         t10 = time.perf_counter()
         rows["sample_count"].update(phase_sparse_svi(card, root, table,
                                                      planted, dense_ll))
         say(card, f"phase 10 passed in {time.perf_counter() - t10:.1f} s")
+        t11 = time.perf_counter()
+        stream_row = phase_stream(card, root, table, planted, host_arm)
+        rows["fused_serve"]["stream"] = stream_row
+        launches["fused_serve"] += stream_row["launches"]
+        say(card, f"phase 11 passed in {time.perf_counter() - t11:.1f} s")
     for name, row in rows.items():
         row["launches"] = launches[name]
     say(card, f"all phases passed in {time.perf_counter() - t0:.1f} s")

@@ -7,9 +7,21 @@
     python -m onix_torch.cli serve [--port P] [--host H]
         [--models-dir DIR] [--bank-capacity C] [-c CONFIG]
         [-s KEY.PATH=VALUE ...] [--device cuda|cpu]
+    python -m onix_torch.cli ingest <flow|dns|proxy> FILE... [-c CONFIG]
+        [-s KEY.PATH=VALUE ...] [--device cuda|cpu]
+    python -m onix_torch.cli stream <flow|dns|proxy> FILE... [--buckets V]
+        [--epochs E] [--superstep S] [--prefetch-depth K]
+        [--prefetch-mode auto|thread|process] [--fault-plan PLAN]
+        [-c CONFIG] [-s KEY.PATH=VALUE ...] [--device cuda|cpu]
 
-The `onix score` and `onix serve` subcommands of `onix/cli.py` on the
-port. `score -s serving.save_fitted=true` persists the day's model
+The `onix score`, `onix serve`, `onix ingest` and `onix stream`
+subcommands of `onix/cli.py` on the port. `ingest` decodes raw files
+(NetFlow v5/v9/IPFIX/nfcapd, tshark TSV or pcap, Bluecoat logs) into
+the store; it runs on the host, and `--device` names the card it would
+have (it raises without one unless `--device cpu`), as every command
+does. `stream` scores each file as one minibatch of the online-VB
+model (`pipelines/streaming.py`) and appends its alerts to
+`<results>/<day>/<type>_streaming.csv`. `score -s serving.save_fitted=true` persists the day's model
 under serving.models_dir; `serve` answers `POST /score` from a model
 bank on the device (`onix_torch/oa/serve.py`). The device defaults to
 the card; `--device cpu` runs on the CPU. `--fault-inject N`
@@ -74,6 +86,40 @@ def build_parser() -> argparse.ArgumentParser:
     p_serve.add_argument("--bank-capacity", type=int, default=None,
                          help="resident tenants per bank shape class "
                               "(serving.bank_capacity)")
+    p_ingest = sub.add_parser(
+        "ingest", help="decode and load raw telemetry into the store")
+    _add_common(p_ingest)
+    p_ingest.add_argument("datatype", choices=("flow", "dns", "proxy"))
+    p_ingest.add_argument("paths", nargs="+", help="raw capture/log files")
+    p_stream = sub.add_parser(
+        "stream", help="streaming scoring: online-VB model updated and "
+                       "scored per ingest minibatch (one file = one batch)")
+    _add_common(p_stream)
+    p_stream.add_argument("datatype", choices=("flow", "dns", "proxy"))
+    p_stream.add_argument("paths", nargs="+", help="raw telemetry files, "
+                          "consumed in order as minibatches")
+    p_stream.add_argument("--buckets", type=int, default=1 << 15,
+                          help="hashed vocabulary size (static V)")
+    p_stream.add_argument("--epochs", type=int, default=1,
+                          help="replay the file list N times (burn-in)")
+    p_stream.add_argument("--superstep", type=int, default=None,
+                          metavar="S",
+                          help="chain S minibatch updates (E-step + "
+                               "lambda step + scoring) with one fetch, "
+                               "(pipeline.stream_superstep; 0/1 = "
+                               "per-batch)")
+    p_stream.add_argument("--prefetch-depth", type=int, default=None,
+                          metavar="K",
+                          help="host pipeline depth: decode+convert up "
+                               "to K batches ahead of the device step "
+                               "(pipeline.stream_prefetch_depth)")
+    p_stream.add_argument("--prefetch-mode", default=None,
+                          choices=("auto", "thread", "process"),
+                          help="where the host stage runs "
+                               "(pipeline.stream_prefetch_mode)")
+    p_stream.add_argument("--fault-plan", default=None, metavar="PLAN",
+                          help="chaos drill: declarative fault plan, e.g. "
+                               "'stream:batch@3=raise'")
     return parser
 
 
@@ -85,6 +131,26 @@ def main(argv: list[str] | None = None) -> int:
     # so a drill's flight record lands under <store.root>/telemetry.
     from onix_torch.utils import telemetry
     telemetry.apply_config(cfg.telemetry)
+    if args.command == "ingest":
+        from onix_torch.device import resolve_device
+        from onix_torch.ingest.run import run_ingest
+        resolve_device(args.device)
+        return run_ingest(cfg, args.datatype, args.paths)
+    if args.command == "stream":
+        if args.fault_plan is not None:
+            from onix_torch.utils import faults
+            faults.install_plan(args.fault_plan)
+        if args.superstep is not None:
+            cfg.pipeline.stream_superstep = args.superstep
+        if args.prefetch_depth is not None:
+            cfg.pipeline.stream_prefetch_depth = args.prefetch_depth
+        if args.prefetch_mode is not None:
+            cfg.pipeline.stream_prefetch_mode = args.prefetch_mode
+        cfg.validate()          # re-check: flags bypass load_config's pass
+        from onix_torch.pipelines.streaming import run_stream
+        return run_stream(cfg, args.datatype, args.paths,
+                          n_buckets=args.buckets, epochs=args.epochs,
+                          device=args.device)
     if args.command == "serve":
         if args.models_dir is not None:
             cfg.serving.models_dir = args.models_dir

@@ -67,3 +67,34 @@ def filter_tables_from_numpy(leaves, device) -> FilterTables:
             for fam in families]
     return FilterTables(*fams, boost_scale=torch.tensor(
         np.asarray(scale, np.float32), device=device))
+
+
+def stream_state_from_numpy(scorer, *, lam, step, gamma=None,
+                            doc_keys=None, last_seen=None, edges=None):
+    """Put a port `StreamingScorer` on the reference scorer's state: λ
+    and step (`np.asarray` of its `SVIState` fields), and, for a stream
+    already under way, the γ store of its documents with its doc table
+    (`gamma` [n_docs, K] of the live rows, the uint32 `doc_keys` or the
+    IP strings, `last_seen`) and the frozen bin `edges`. Returns the
+    scorer."""
+    from onix_torch.pipelines.streaming import (DocTable, U32DocTable,
+                                                _next_pow2)
+    scorer.state = svi_state_from_numpy(lam, step, scorer.device)
+    if edges is not None:
+        scorer.edges = edges
+    if doc_keys is None:
+        return scorer
+    keys = np.asarray(doc_keys)
+    docs = U32DocTable() if keys.dtype == np.uint32 else DocTable()
+    docs.load(keys)
+    scorer.docs = docs
+    n = docs.n_docs
+    g = np.asarray(gamma, np.float32)
+    cap = _next_pow2(max(n, 1))
+    scorer._gamma = np.full((cap, g.shape[1]), scorer.cfg.lda.alpha,
+                            np.float32)
+    scorer._gamma[:n] = g[:n]
+    scorer._last_seen = np.zeros(cap, np.int64)
+    if last_seen is not None:
+        scorer._last_seen[:n] = np.asarray(last_seen)[:n]
+    return scorer

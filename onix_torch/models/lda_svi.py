@@ -346,7 +346,7 @@ def svi_superstep(state: SVIState, sb: SuperBatch,
                   alpha: float, eta: float, tau0: float, kappa: float,
                   local_iters: int, batch_docs: int,
                   meanchange_tol: float = 0.0, warm_iters: int = 0,
-                  estep_form: str = "svi"
+                  estep_form: str = "svi", stats: dict | None = None
                   ) -> tuple[SVIState, torch.Tensor, torch.Tensor]:
     """S chained minibatch updates with incremental scoring (the
     reference's `:356`): each batch warm-starts from the union γ store
@@ -354,7 +354,8 @@ def svi_superstep(state: SVIState, sb: SuperBatch,
     back, and scores its tokens under the updated model (θ from its γ,
     padding rows at the uniform prior; φ from λ) through
     `scoring.score_events`. Returns (new_state, the updated store,
-    scores [S, T])."""
+    scores [S, T]). `stats` gains one E-step iteration count a batch
+    (svi_step)."""
     from onix_torch.models.scoring import score_events
 
     lam, step = state.lam, state.step
@@ -373,7 +374,7 @@ def svi_superstep(state: SVIState, sb: SuperBatch,
             lam, step, d_ids, w_ids, m, real.sum().to(torch.float32),
             cdocs[s], g0, alpha=alpha, eta=eta, tau0=tau0, kappa=kappa,
             local_iters=local_iters, meanchange_tol=meanchange_tol,
-            warm_iters=warm_iters, estep_form=estep_form, stats=None)
+            warm_iters=warm_iters, estep_form=estep_form, stats=stats)
         step += 1
         store[dmu[real]] = gamma[real]
         theta = torch.where(real[:, None],
@@ -418,8 +419,10 @@ class SVILda:
                         stats=stats, **self._kw)
 
     def update_superstep(self, state: SVIState, sb: SuperBatch,
-                         gamma_union, corpus_docs):
+                         gamma_union, corpus_docs,
+                         stats: dict | None = None):
         """S chained SVI updates with incremental scoring
         (svi_superstep docstring)."""
         return svi_superstep(state, sb, _f32(gamma_union, self.device),
-                             corpus_docs, batch_docs=sb.n_docs, **self._kw)
+                             corpus_docs, batch_docs=sb.n_docs,
+                             stats=stats, **self._kw)

@@ -1,6 +1,5 @@
 """The scale day: a full synthetic telemetry day end to end at 10⁷–10⁸
-events on one card — the port of `onix/pipelines/scale.py` (its path
-that does not stream through device word creation).
+events on one card — the port of `onix/pipelines/scale.py`.
 
 BASELINE.json configs[3] is "1B-row synthetic netflow, 20 topics,
 multi-chip doc-sharded Gibbs"; configs[1]/[2] are the DNS and proxy
@@ -19,10 +18,13 @@ the serve gate resolves "fused"), with per-stage walls in a manifest.
 
 With `train_events < n_events` the model is fitted on the first
 `train_events` events and every event of the day is then scored in
-chunks of that size. The reference builds those chunks' words on the
-device by default (`device_words.py`, item 14 of ROADMAP.md, not in the
-port yet, so that arm raises); `ONIX_HOST_WORDS=1` selects its host
-arm, which the port runs. A run of several fit processes
+chunks of that size. Those chunks' words are built and mapped on the
+device by default (`device_words.py`: binning, compact-key lookup,
+score gathers and the exact bottom-k in PyTorch ops);
+`ONIX_HOST_WORDS=1` selects host word creation, the cross-check arm. A
+trained vocabulary that does not fit the compact key returns the run to
+host words, as in the reference, and the manifest's `words_mode` says
+so. A run of several fit processes
 (`fit_hosts > 1`) raises for slice 5, the independent session generator
 (`generator="sessions"`) for item 21.
 """
@@ -44,12 +46,15 @@ from onix_torch.models import fused_serve, sample_count, scoring
 from onix_torch.models.lda_gibbs import SUPERSTEP_DEFAULT, merge_fingerprint
 from onix_torch.parallel.mesh import make_mesh
 from onix_torch.parallel.sharded_gibbs import ShardedGibbsLDA
+from onix_torch.pipelines import device_words as dw
+from onix_torch.pipelines.device_words import host_words_forced
 from onix_torch.pipelines.corpus_build import (build_corpus,
                                                select_suspicious_events)
 from onix_torch.pipelines.synth import SYNTH_ARRAYS
 from onix_torch.pipelines.words import (dns_words_from_arrays,
                                         flow_words_from_arrays,
                                         proxy_words_from_arrays)
+from onix_torch.utils import telemetry
 from onix_torch.utils.obs import counters
 
 _FLOW_COLS = ("sip_u32", "dip_u32", "sport", "dport", "proto_id", "hour",
@@ -58,17 +63,6 @@ _DNS_COLS = ("client_u32", "qname_codes", "qnames", "qtype", "rcode",
              "frame_len", "hour")
 _PROXY_COLS = ("client_u32", "uri_codes", "uris", "host_codes", "hosts",
                "ua_codes", "agents", "respcode", "hour")
-
-
-def host_words_forced() -> bool:
-    """True when the env pins HOST word creation. Device-resident
-    word creation is the default hot path in the scale and streaming
-    pipelines; `ONIX_HOST_WORDS=1` (or the legacy spelling
-    `ONIX_DEVICE_WORDS=0`) selects the host reference implementation —
-    kept as the cross-check arm the device-vs-host parity tests and
-    artifacts compare against."""
-    return (os.environ.get("ONIX_HOST_WORDS") == "1"
-            or os.environ.get("ONIX_DEVICE_WORDS") == "0")
 
 
 def _words_from_cols(datatype: str, cols: dict, edges: dict | None = None):
@@ -100,9 +94,10 @@ def run_scale(n_events: int, n_hosts: int | None = None,
     """End-to-end scale run on `device` (the card by default; raises
     without one); returns (and optionally writes) the manifest.
 
-    With `train_events < n_events` (and ONIX_HOST_WORDS=1) the model is
-    fitted on the first `train_events` events, then EVERY event of the
-    day is scored in train_events-sized chunks. Events whose word or
+    With `train_events < n_events` the model is fitted on the first
+    `train_events` events, then EVERY event of the day is scored in
+    train_events-sized chunks (words on the device unless
+    ONIX_HOST_WORDS=1). Events whose word or
     document never occurred in the training window score at prior
     rarity (an unseen word is rarer than the rarest seen word; an
     unseen document gets the uniform α-prior mixture) — the suspicious
@@ -134,11 +129,6 @@ def run_scale(n_events: int, n_hosts: int | None = None,
         # stamp independent-witness claims on evidence that isn't.
         raise ValueError(f"unknown generator {generator!r}; "
                          "expected 'mixture' or 'sessions'")
-    if train_events < n_events and not host_words_forced():
-        raise not_ported(
-            "the scale run's device word creation for the streamed chunks "
-            "(train_events < n_events without ONIX_HOST_WORDS=1)",
-            "item 14 (pipelines/device_words.py)")
     if n_hosts is None:
         n_hosts = max(120, min(200_000, n_events // 500))
     if n_anomalies is None:
@@ -323,6 +313,9 @@ def run_scale(n_events: int, n_hosts: int | None = None,
            if resumed_sessions else {}),
         **stream_info,
     }
+    # The telemetry view (span histograms + recorder tallies, zeros
+    # included): what was observed live, as the reference's manifest.
+    manifest["telemetry"] = telemetry.snapshot()
     # Resilience events this run tallied (retries, salvage skips,
     # injected faults, checkpoint digest mismatches) — empty on a clean
     # run.
@@ -421,12 +414,17 @@ def _stream_score(bundle, fitted_edges, theta, phi_wk, *, n_events: int,
                   datatype: str = "flow", info: dict | None = None,
                   ckpt=None, save_meta=None, device="cuda"):
     """Score the FULL day in chunk_events-sized pieces against a model
-    fitted on chunk 0, with host word creation (the reference's
-    ONIX_HOST_WORDS=1 arm) and the `table_*_fast` scans on the device.
+    fitted on chunk 0.
 
     Vocabulary and document ids are extended by one UNSEEN row each
-    (`extend_model_for_unseen`). Per chunk only the top-k winners stay
-    on the host, so peak memory is one chunk's columns."""
+    (`extend_model_for_unseen`). Words are built on the device by
+    default: a chunk's raw columns go to the card and
+    `device_words.*_stream_bottom_k` bins, packs, looks up, scores and
+    selects there (string features per unique value stay on the host
+    for dns and proxy); host word creation + `table_*_fast` scans run
+    under ONIX_HOST_WORDS=1. While one chunk's scan runs on the card,
+    the next chunk is synthesized and staged. Per chunk only the top-k
+    winners come back, so peak memory is one chunk's columns."""
     info = {} if info is None else info
     dev = resolve_device(device)
     theta_x, phi_x = extend_model_for_unseen(theta, phi_wk)
@@ -447,7 +445,26 @@ def _stream_score(bundle, fitted_edges, theta, phi_wk, *, n_events: int,
 
     unseen_w = v_x - 1
     unseen_d = d_x - 1
-    info["words_mode"] = "host"
+    device_words = not host_words_forced()
+    # Flow tables are built lazily from the FIRST streamed chunk, whose
+    # cols["proto_classes"] is the caller proto-id order the device
+    # remap keys on.
+    dev_tables = None
+    walls.setdefault("stream_words_map", 0.0)
+    if device_words and datatype != "flow":
+        # Timed into stream_words_map like the flow build: the O(V+D)
+        # re-encode is pipeline work.
+        t_build = time.monotonic()
+        try:
+            dev_tables = (dw.build_dns_tables(bundle, fitted_edges, dev)
+                          if datatype == "dns"
+                          else dw.build_proxy_tables(bundle, fitted_edges,
+                                                     dev))
+        except ValueError as e:
+            print(f"device words unavailable ({e}); using the host path")
+            device_words = False
+        walls["stream_words_map"] += time.monotonic() - t_build
+    info["words_mode"] = "device" if device_words else "host"
     # Streamed chunks plant a day-proportional share of anomalies, not
     # a full day's worth per chunk, so planted_in_bottom_k is read
     # against max_results rather than diluted by n_chunks x more planted
@@ -459,7 +476,6 @@ def _stream_score(bundle, fitted_edges, theta, phi_wk, *, n_events: int,
     # stream_synth times the generator alone; stream_words_map is the
     # pipeline's work (word creation + trained-id mapping) and joins the
     # pipeline-only rate.
-    walls.setdefault("stream_words_map", 0.0)
     walls["stream_synth"] = 0.0
     walls["stream_score"] = 0.0
     offset = 0
@@ -493,6 +509,36 @@ def _stream_score(bundle, fitted_edges, theta, phi_wk, *, n_events: int,
         if save_meta is not None:
             save_meta()
 
+    def _synth_chunk(ci: int, mi: int) -> dict:
+        t0 = time.monotonic()
+        cc = SYNTH_ARRAYS[datatype](mi, n_hosts=n_hosts,
+                                    n_anomalies=anomalies_per_chunk,
+                                    seed=seed + 1000 * ci)
+        walls["stream_synth"] += time.monotonic() - t0
+        return cc
+
+    def _stage_cols(cc: dict):
+        """Stage one synthesized chunk on the device. Raises ValueError
+        when the trained bundle cannot ride the compact keys (flow
+        table build gates)."""
+        nonlocal dev_tables
+        t0 = time.monotonic()
+        if dev_tables is None:      # flow: keyed on the caller proto order
+            dev_tables = dw.build_flow_tables(
+                bundle, fitted_edges, list(cc["proto_classes"]), dev)
+        staged = dw.STAGE_FNS[datatype](cc, fitted_edges, dev)
+        walls["stream_words_map"] += time.monotonic() - t0
+        return staged
+
+    def _stage_chunk(ci: int, mi: int):
+        """Synthesize chunk ci and stage it. Returns (staged cols,
+        planted event ids); the planted merge is deferred until the
+        chunk actually processes so a resume never inherits plants
+        from a chunk that was only ever prefetched."""
+        cc = _synth_chunk(ci, mi)
+        return _stage_cols(cc), set((cc["anomaly_idx"] + ci * chunk_events)
+                                    .tolist())
+
     def _host_idx(cols: dict) -> np.ndarray:
         """Host mapping: word creation + searchsorted id maps into
         the TRAINED id spaces; unknowns go to the UNSEEN rows."""
@@ -504,8 +550,21 @@ def _stream_score(bundle, fitted_edges, theta, phi_wk, *, n_events: int,
         walls["stream_words_map"] += time.monotonic() - t0
         return out
 
+    def _fused_bottom_k(staged):
+        kw = dict(v_x=v_x, unseen_w=unseen_w, unseen_d=unseen_d, tol=1.0,
+                  max_results=max_results)
+        if datatype == "flow":
+            return dw.flow_stream_bottom_k(dev_tables, table, staged, **kw)
+        if datatype == "dns":
+            return dw.dns_stream_bottom_k(dev_tables, table, staged,
+                                          fitted_edges, **kw)
+        return dw.proxy_stream_bottom_k(dev_tables, table, staged,
+                                        fitted_edges, **kw)
+
+    prefetched = None      # (chunk index, staged cols, planted ids)
     while offset < n_events:
         m = min(chunk_events, n_events - offset)
+        top = None         # set by the device words arm only
         if c == 0:
             # Chunk 0 is the training window — its corpus is already
             # mapped; reuse the integer ids directly. int32 throughout:
@@ -516,26 +575,62 @@ def _stream_score(bundle, fitted_edges, theta, phi_wk, *, n_events: int,
             idx = (d_ids.astype(np.int32) * np.int32(v_x)
                    + w_ids.astype(np.int32))
             walls["stream_words_map"] += time.monotonic() - t
+        elif device_words:
+            # The raw columns ARE the input — words + map + score +
+            # select run on the device inside stream_score. While THIS
+            # chunk's scan is queued on the card, the NEXT chunk is
+            # synthesized and staged.
+            staged = None
+            if prefetched is not None and prefetched[0] == c:
+                staged, planted_c = prefetched[1], prefetched[2]
+            else:                      # first streamed chunk / resume
+                cc = _synth_chunk(c, m)
+                planted_c = set((cc["anomaly_idx"] + c * chunk_events)
+                                .tolist())
+                try:
+                    staged = _stage_cols(cc)
+                except ValueError as e:
+                    # The reference's rule: a trained vocabulary outside
+                    # the compact-key ranges rides the host path for the
+                    # rest of the run, announced and recorded in
+                    # words_mode.
+                    print(f"device words unavailable ({e}); "
+                          "using the host path")
+                    device_words = False
+                    info["words_mode"] = "host"
+                    idx = _host_idx(cc)
+                del cc
+            prefetched = None
+            planted.update(planted_c)
+            if staged is not None:
+                t = time.monotonic()
+                top = _fused_bottom_k(staged)     # queued on the device
+                walls["stream_score"] += time.monotonic() - t
+                del staged
+                if offset + m < n_events:
+                    prefetched = (c + 1, *_stage_chunk(
+                        c + 1, min(chunk_events, n_events - offset - m)))
+                idx = None
         else:
-            t0 = time.monotonic()
-            cols = SYNTH_ARRAYS[datatype](m, n_hosts=n_hosts,
-                                          n_anomalies=anomalies_per_chunk,
-                                          seed=seed + 1000 * c)
-            walls["stream_synth"] += time.monotonic() - t0
+            # Host cross-check arm (ONIX_HOST_WORDS=1).
+            cols = _synth_chunk(c, m)
             planted.update((cols["anomaly_idx"] + offset).tolist())
             idx = _host_idx(cols)
             del cols
 
         t = time.monotonic()
-        ids = torch.from_numpy(np.ascontiguousarray(idx, np.int32)).to(dev)
-        if datatype == "flow":  # [src|dst] halves: the pair-min scan
-            top = scoring.table_pair_bottom_k_fast(
-                table, ids[:m], ids[m:], table_b, tol=1.0,
-                max_results=max_results)
-        else:                   # one client-IP token per event
-            top = scoring.table_bottom_k_fast(
-                table, ids, table_b, tol=1.0, max_results=max_results)
-        ti = top.indices.cpu().numpy()
+        if top is None:
+            ids = torch.from_numpy(np.ascontiguousarray(idx, np.int32)).to(
+                dev)
+            if datatype == "flow":  # [src|dst] halves: the pair-min scan
+                top = scoring.table_pair_bottom_k_fast(
+                    table, ids[:m], ids[m:], table_b, tol=1.0,
+                    max_results=max_results)
+            else:                   # one client-IP token per event
+                top = scoring.table_bottom_k_fast(
+                    table, ids, table_b, tol=1.0, max_results=max_results)
+            idx = None
+        ti = top.indices.cpu().numpy()     # waits for the chunk's scan
         ts = top.scores.cpu().numpy()
         keep = ti >= 0
         all_idx.append(ti[keep] + offset)
@@ -568,8 +663,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--sweeps", type=int, default=20)
     ap.add_argument("--train-events", type=float, default=None,
                     help="fit on this many events, score the rest in "
-                         "chunks (needs ONIX_HOST_WORDS=1; default: train "
-                         "on everything)")
+                         "chunks (default: train on everything)")
     ap.add_argument("--out", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--chains", type=int, default=1,

@@ -25,6 +25,7 @@ observations or dumps.
 
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import contextvars
@@ -163,6 +164,26 @@ class Histogram:
             mid = min(max(mid, self.min), self.max)
         return mid
 
+    def snapshot(self) -> dict:
+        """Manifest-ready summary: count/sum/min/max, the three judged
+        quantiles, the error bound, and the (sparse) bucket table as
+        [upper_edge, count] rows."""
+        items = self._sorted_counts()
+        with self._lock:
+            n, s = self.n, self.sum
+            mn = self.min if self.n else None
+            mx = self.max if self.n else None
+        return {
+            "n": n,
+            "sum": round(s, 9),
+            "min": mn, "max": mx,
+            "p50": self.quantile(0.50),
+            "p99": self.quantile(0.99),
+            "p999": self.quantile(0.999),
+            "rel_error": round(self.rel_error, 4),
+            "buckets": [[self.edge(b), c] for b, c in items],
+        }
+
 
 class HistogramRegistry:
     """Process-wide named histograms — the distribution analog of
@@ -189,6 +210,20 @@ class HistogramRegistry:
 
     def names(self, prefix: str = "") -> list[str]:
         return sorted(k for k in self._hists if k.startswith(prefix))
+
+    def snapshot(self, prefix: str = "", buckets: bool = False) -> dict:
+        """name -> histogram summary (bucket tables only on request —
+        manifests want quantiles, not 200 rows per series)."""
+        out = {}
+        for name in self.names(prefix):
+            h = self._hists.get(name)
+            if h is None:
+                continue
+            snap = h.snapshot()
+            if not buckets:
+                snap.pop("buckets")
+            out[name] = snap
+        return out
 
     def reset(self, prefix: str = "") -> None:
         with self._lock:
@@ -499,6 +534,35 @@ def apply_config(tcfg) -> None:
               recorder_events=tcfg.recorder_events)
 
 
+def reset_for_tests() -> None:
+    """Clear the ring, the histogram registry, and the telemetry
+    counters; re-enable with full sampling. Tests only."""
+    RECORDER.clear()
+    RECORDER.out_dir = None
+    histograms.reset()
+    counters.reset("telemetry")
+    TRACER.configure(enabled=True, sample=1.0)
+
+
+def snapshot(full: bool = False) -> dict:
+    """The manifest telemetry block: enablement, span/dump tallies, and
+    per-histogram quantile summaries (zeros included — an artifact that
+    recorded nothing says so explicitly). `full=True` adds the complete
+    counter snapshot and bucket tables."""
+    out = {
+        "enabled": TRACER.enabled,
+        "sample": TRACER.sample,
+        "spans_recorded": counters.get("telemetry.spans_recorded"),
+        "recorder_dumps": counters.get("telemetry.recorder_dumps"),
+        "recorder_dumps_unrouted":
+            counters.get("telemetry.recorder_dump_unrouted"),
+        "histograms": histograms.snapshot(buckets=full),
+    }
+    if full:
+        out["counters"] = counters.snapshot()
+    return out
+
+
 def _prom_name(dotted: str, suffix: str = "") -> str:
     name = "onix_" + re.sub(r"[^a-zA-Z0-9_:]", "_", dotted) + suffix
     return name
@@ -579,7 +643,7 @@ _LABEL_RE = re.compile(
 
 
 # ---------------------------------------------------------------------------
-# Process wiring: the counter observer.
+# Process wiring: the counter observer and the exit snapshot.
 # ---------------------------------------------------------------------------
 
 
@@ -593,4 +657,23 @@ def _counter_observer(name: str, delta: int, total: int) -> None:
     RECORDER.record("counter", name=name, delta=delta, total=total)
 
 
+def _register_exit_snapshot() -> None:
+    # A caller that sets _ONIX_TELEMETRY_SNAPSHOT to a path gets a full
+    # telemetry snapshot (counters + histograms) written there at exit.
+    path = os.environ.get("_ONIX_TELEMETRY_SNAPSHOT")
+    if not path:
+        return
+
+    def _write():
+        try:
+            pathlib.Path(path).write_text(
+                json.dumps(snapshot(full=True), indent=2,
+                           default=repr) + "\n")
+        except OSError:
+            counters.inc("telemetry.snapshot_write_failed")
+
+    atexit.register(_write)
+
+
 counters.set_observer(_counter_observer)
+_register_exit_snapshot()

@@ -10,7 +10,10 @@ captured where `run_scale` selects them (`select_suspicious_events`,
 or `_stream_score` for the streamed host arm) and must agree: scores to
 8 ulps (48 for chains' geometric mean, as tests/test_torch_chains.py
 holds it), winners equal but where the reference's scores of two events
-lie within twice that (ROADMAP F3).
+lie within twice that (ROADMAP F3). The streamed chunks run both word
+arms: host word creation (ONIX_HOST_WORDS=1) and the default device
+words. The manifests' key sets differ only by the port's documented
+additions (`PORT_ONLY_KEYS`).
 """
 
 import numpy as np
@@ -27,6 +30,15 @@ from onix_torch.pipelines import synth as tsynth  # noqa: E402
 from tests.test_torch_sharded import ShardedReplayNoise  # noqa: E402
 
 ULP8 = 8 * 2.0 ** -23
+# Manifest keys the port adds to the reference's: the torch device's
+# name, K1 and K2 launches, and the split of gibbs_fit.
+PORT_ONLY_KEYS = {"device", "kernel_launches", "fit_walls_seconds"}
+
+
+def assert_manifest_keys(tm, jm):
+    assert set(tm) - set(jm) == PORT_ONLY_KEYS
+    assert set(jm) - set(tm) == set()
+    assert tm["telemetry"].keys() == jm["telemetry"].keys()
 
 
 @pytest.mark.parametrize("datatype", ["flow", "dns", "proxy"])
@@ -105,6 +117,7 @@ def test_run_scale_matches_reference(monkeypatch, datatype, n_chains):
     assert tm["kernel_launches"] == {"sample_count": 0, "fused_serve": 0}
     assert tm["devices"] == ["cpu"]
     assert set(jm["walls_seconds"]) == set(tm["walls_seconds"])
+    assert_manifest_keys(tm, jm)
     assert_same_selection(got, want, ULP8 if n_chains == 1 else 6 * ULP8)
 
 
@@ -114,12 +127,67 @@ def test_streamed_host_arm_matches_reference(monkeypatch, datatype):
     jm, tm, want, got = run_both(monkeypatch, 50_000, train_events=20_000,
                                  datatype=datatype)
     assert tm["words_mode"] == jm["words_mode"] == "host"
+    assert_manifest_keys(tm, jm)
     assert tm["planted_anomalies"] == jm["planted_anomalies"]
     for key in ("stream_synth", "stream_words_map", "stream_score"):
         assert key in tm["walls_seconds"]
     assert (tm["events_per_second_pipeline_only"]
             >= tm["events_per_second_end_to_end"])
     assert_same_selection(got, want)
+
+
+@pytest.mark.parametrize("datatype", ["flow", "dns", "proxy"])
+def test_streamed_device_words_arm_matches_reference(monkeypatch,
+                                                     datatype):
+    """The default arm of a streamed run: each chunk's words built,
+    mapped, scored and selected on the device, in both packages."""
+    monkeypatch.delenv("ONIX_HOST_WORDS", raising=False)
+    monkeypatch.delenv("ONIX_DEVICE_WORDS", raising=False)
+    jm, tm, want, got = run_both(monkeypatch, 50_000, train_events=20_000,
+                                 datatype=datatype)
+    assert tm["words_mode"] == jm["words_mode"] == "device"
+    assert tm["planted_anomalies"] == jm["planted_anomalies"]
+    assert tm["planted_in_bottom_k"] >= 0.8 * tm["planted_anomalies"]
+    assert_manifest_keys(tm, jm)
+    assert_same_selection(got, want)
+
+
+def test_device_words_arm_selects_the_host_arms_winners(monkeypatch):
+    seen = _capture(monkeypatch, tscale)
+    arms = {}
+    for env in ("1", None):
+        if env is None:
+            monkeypatch.delenv("ONIX_HOST_WORDS")
+        else:
+            monkeypatch.setenv("ONIX_HOST_WORDS", env)
+        m = tscale.run_scale(40_000, train_events=15_000, n_sweeps=4,
+                             seed=5, device="cpu")
+        arms[m["words_mode"]] = seen.pop("top")
+    np.testing.assert_array_equal(arms["device"][0], arms["host"][0])
+    np.testing.assert_array_equal(arms["device"][1], arms["host"][1])
+
+
+def test_flow_table_build_failure_degrades_to_host(monkeypatch):
+    """A trained flow vocabulary the compact key cannot carry returns
+    the run to host words (the reference's rule), recorded in the
+    manifest's words_mode, with the host arm's winners."""
+    from onix_torch.pipelines import device_words
+
+    def boom(*a, **kw):
+        raise ValueError("synthetic compact-key overflow")
+
+    monkeypatch.delenv("ONIX_HOST_WORDS", raising=False)
+    monkeypatch.delenv("ONIX_DEVICE_WORDS", raising=False)
+    seen = _capture(monkeypatch, tscale)
+    kw = dict(train_events=10_000, n_sweeps=4, seed=5, device="cpu")
+    monkeypatch.setattr(device_words, "build_flow_tables", boom)
+    m = tscale.run_scale(20_000, **kw)
+    degraded = seen.pop("top")
+    assert m["words_mode"] == "host"
+    assert m["planted_in_bottom_k"] > 0
+    monkeypatch.setenv("ONIX_HOST_WORDS", "1")
+    tscale.run_scale(20_000, **kw)
+    np.testing.assert_array_equal(seen["top"][0], degraded[0])
 
 
 def test_resume_dir_skips_the_fit_and_keeps_the_answer(tmp_path,
@@ -153,7 +221,6 @@ def test_extend_model_for_unseen_matches_reference():
 
 
 @pytest.mark.parametrize("kw,env,what", [
-    (dict(train_events=10_000), None, "item 14"),
     (dict(fit_hosts=2), None, "slice 5"),
     (dict(generator="sessions"), None, "item 21"),
     (dict(), ("ONIX_DP1_FAST", "0"), "slice 5"),
