@@ -128,6 +128,45 @@ non-zero and prints no result line):
              anomalies among them, and at least the reference's
              streamed share less 0.05 (SCALE_STREAMED_REF_SHARE).
 
+12. operate and serve — (a) `python -m onix_torch.cli watch flow
+             <dir> --drain` over phase 11's four v5 files and a capture
+             cut inside its first packet header, with --procs 1 and
+             --procs 2 into fresh stores: the reference's exit codes and
+             summary lines (the torn file quarantined after the retry
+             budget in one process, retried once a drain by the
+             workers), phase 11 (d)'s 10^6 rows in each store, nothing
+             on a second drain; `config`'s hash. (b) `run_scale`
+             with generator="sessions" for flow, dns and proxy at the
+             reference test's shape (60,000 events, 500 hosts, 16
+             sweeps, M 2,000): K1 launches of sweeps x blocks, >= 0.3 of
+             the planted anomalies; then flow at
+             docs/RECALL_r05_sessions_small.json's shape, its recall
+             at 1,000 / 3,000 / 10,000 printed beside the record's.
+             (c) the phase-6 model and harness tenants through
+             `serve_background` with serving.replicas=2 on the card:
+             answers equal the plain path, /feedback reaches both
+             replicas before the next /score, mark_down(0) re-homes
+             every tenant with its answers unchanged, K2 launches equal
+             the replicas' dispatches; peak allocated bytes at 1 and 2
+             replicas. (d) the load harness at the reference's bench
+             shape (32 tenants, D 2,048, V 1,024, K 20, 96 requests of
+             4,096 events, batches of 48, seed 7, uncached) under
+             "auto": parity with the sequential path, the residency
+             identity at capacity 8, events/s, the dispatch collapse,
+             the resolved forms; the overload cell three times. (e) the
+             harness under the xla form and fused: xla against fused by
+             F0's contract; the ladder drill (K2 raising in-process: on
+             the card the ladder has no rung, so the error propagates
+             with the flag on and off); the three `*_filtered_fast`
+             dispatchers at the day's shapes with a 3-key filter in
+             both forms. (f) the serve gate's crossover, in its unit,
+             events a scan: the fused select with its gathers against
+             the torch f32 scan at N = 2^10 ... 2^24, and the bank's
+             fused wave against its xla wave at the harness's 48 rows
+             and 2^6 ... 2^14 events a row, three passes each; the
+             gate's "cuda" row must be each sweep's crossover within one
+             power of two. Every phase leaves serve.form_fallback at 0.
+
 The last lines of standard output are the card's name and power limit,
 a `{"kernels": [...]}` line, and `{"ok": true, "device": {...}}`.
 Without a CUDA device, or run from a directory that holds no
@@ -1491,6 +1530,8 @@ def phase_serve(card: str, root: pathlib.Path, table) -> dict:
     from onix_torch.utils.obs import counters
     cfg = OnixConfig()
     cfg.store.root = str(root)
+    # Pinned: this phase counts K2's launches against the bank's waves.
+    cfg.serving.serve_form = "fused"
     cfg.validate()
     tol, m = cfg.pipeline.tol, cfg.pipeline.max_results
     day = model_name("flow", SERVE_DATE)
@@ -2012,7 +2053,11 @@ def phase_scale(card: str, root: pathlib.Path, table, planted,
     check_launches("run_scale: K1", launches_b, want_b)
     check_launches("run_scale: K1 (manifest)",
                    m["kernel_launches"]["sample_count"], want_b)
-    check_launches("run_scale: K2", fs.launches, 0)   # "auto" is the scan
+    # run_scale selects under "auto": one K2 launch when the serve gate
+    # resolves "fused" at the day's N, none for the f32 scan.
+    scan_form = fs.select_serve_form("auto", n_events, "cuda")
+    check_launches(f"run_scale: K2 (auto resolves {scan_form})", fs.launches,
+                   1 if scan_form == "fused" else 0)
     hits, n_planted = m["planted_in_bottom_k"], m["planted_anomalies"]
     say(card, f"scale (b): run_scale({n_events}): D={m['n_docs']} "
               f"V={m['n_vocab']} N={m['n_train_tokens']} n_hosts="
@@ -2048,7 +2093,8 @@ def phase_scale(card: str, root: pathlib.Path, table, planted,
         os.environ.pop("ONIX_SERVE_FORM", None)
         for arm, form, screened in (("xla", "xla", "0"),
                                     ("fused", "fused", "0"),
-                                    ("screened", "auto", "1")):
+                                    ("screened", "xla", "1"),
+                                    ("auto", "auto", "0")):
             os.environ["ONIX_SCREENED_SELECT"] = screened
             torch.cuda.synchronize()
             fs.launches = 0
@@ -2069,8 +2115,10 @@ def phase_scale(card: str, root: pathlib.Path, table, planted,
                 and torch.equal(top.scores, ref.scores)):
             raise AssertionError(f"scale (c): the {arm} arm's winners "
                                  "differ from the f32 scan's")
-        check_launches(f"scale (c) {arm}: K2", n_k2,
-                       1 if arm == "fused" else 0)
+        fused = (arm == "fused" or arm == "auto"
+                 and fs.select_serve_form("auto", n_events, "cuda")
+                 == "fused")
+        check_launches(f"scale (c) {arm}: K2", n_k2, 1 if fused else 0)
     tab = scoring.score_table(torch.from_numpy(theta).cuda(),
                               torch.from_numpy(phi).cuda()).reshape(-1)
     n_real = bundle.n_real_tokens
@@ -2123,9 +2171,12 @@ def phase_scale(card: str, root: pathlib.Path, table, planted,
                        max_results=SCALE_M, shape=(1, n_events))
     bound_ms, bound_by, nbytes, ops = k2_bound(k2_kw_bound, n_events)
     form = fs.kernel_form(1, n_events, SCALE_M)
-    say(card, f"scale (c): xla, fused and bf16-screened selections equal "
-              f"bit for bit ({int((ref.indices >= 0).sum())} winners), "
-              f"screen sound, K2 launched once (fused arm, {form} form)")
+    say(card, f"scale (c): xla, fused, bf16-screened and auto (resolves "
+              f"{fs.select_serve_form('auto', n_events, 'cuda')}) "
+              f"selections equal bit for bit "
+              f"({int((ref.indices >= 0).sum())} winners), screen sound, K2 "
+              f"launched once by the fused arm ({form} form) and "
+              f"{arms['auto'][1]} time(s) by the auto arm")
     say(card, "scale (e): K2 at N=" + str(n_events) + f", M={SCALE_M}: "
               "equal to plain; " + "; ".join(
                   f"{k} {v:.5f} ms" for k, v in times.items())
@@ -2746,7 +2797,8 @@ def phase_stream(card: str, root: pathlib.Path, table, planted,
     sample_count.launches = fs.launches = 0
     out = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
+    with contextlib.redirect_stdout(out), \
+            Calls(fs, "fused_stream_tail") as auto_tails:
         rc = cli.main(["stream", "flow", *files, "--epochs", "2", "-s",
                        f"store.root={store}", "-s",
                        f"store.results_dir={store / 'results'}"])
@@ -2757,13 +2809,22 @@ def phase_stream(card: str, root: pathlib.Path, table, planted,
     if rc != 0:
         raise AssertionError(f"onix_torch stream exited {rc}")
     check_launches("stream (c): K1", sample_count.launches, 0)
-    check_launches("stream (c): K2", fs.launches, 0)   # "auto" is the host
+    # "auto": the gate at one file's events decides the tail; a K2 launch
+    # for each batch that took the device layout, none for the host tail.
+    tail_form = fs.select_serve_form("auto", len(table) // STREAM_FILES,
+                                     "cuda")
+    check_launches(f"stream (c): K2 (auto resolves {tail_form})",
+                   fs.launches, len(auto_tails.calls))
+    if (len(auto_tails.calls) > 0) != (tail_form == "fused"):
+        raise AssertionError(f"stream (c): {len(auto_tails.calls)} fused "
+                             f"tails under a gate that says {tail_form}")
     share = stream_share(log, store / "results", planted, len(table))
     mode = re.search(r"stream prefetch: mode=(\w+)", log)
     say(card, f"stream (c): onix_torch stream flow <{STREAM_FILES} v5 "
               f"files> --epochs 2: {2 * len(table) / wall:.1f} events/s "
               f"({wall:.2f} s, both epochs), prefetch mode "
-              f"{mode.group(1) if mode else 'none'}, K1 launches 0; "
+              f"{mode.group(1) if mode else 'none'}, K1 launches 0, K2 "
+              f"launches {fs.launches} (auto resolves {tail_form}); "
               f"planted events alerted in their own file in epoch 2: "
               f"{share:.4f} (bar {STREAM_REF_SHARE} - {STREAM_SHARE_SLACK})")
     if share < STREAM_REF_SHARE - STREAM_SHARE_SLACK:
@@ -2846,6 +2907,781 @@ def phase_stream(card: str, root: pathlib.Path, table, planted,
     return {"launches": n_k2, **tail_rows[0], "filtered_tail": tail_rows[1]}
 
 
+# -- phase 12 (a)-(e) ---------------------------------------------------------
+
+# (b) the session generator at the reference test's shape
+# (tests/test_synth2.py), then flow at docs/RECALL_r05_sessions_small.json's.
+SESSIONS_EVENTS, SESSIONS_HOSTS, SESSIONS_SWEEPS, SESSIONS_M = (
+    60_000, 500, 16, 2000)
+SESSIONS_BAR = 0.3
+RECALL_SMALL = dict(n_events=2_000_000, n_hosts=20_000, n_anomalies=60,
+                    n_sweeps=40, seed=0)
+RECALL_SMALL_DEPTHS = (1000, 3000, 10000)
+# docs/RECALL_r05_sessions_small.json, arms.after_tail_bins.flow.recall
+# (JAX GibbsLDA, block 2^14, on a CPU host): the share of the planted
+# events in the top 1,000 / 3,000 / 10,000.
+RECALL_SMALL_REF = {1000: 0.3833, 3000: 0.4, 10000: 0.5167}
+# (d) the reference's serving bench shape (bench.py bench_model_bank, not
+# `small`), uncached; the residency identity at capacity 8.
+BENCH_SPEC = dict(n_tenants=32, n_docs=2048, n_vocab=1024, n_topics=20,
+                  n_requests=96, events_per_request=4096, n_windows=0,
+                  batch_requests=48, tol=1.0, max_results=100, seed=7)
+BENCH_CAPACITY = 8
+OVERLOAD_RUNS = 3
+
+
+def no_fallback(what: str) -> None:
+    """No wave fell back from K2 to the xla form: on the card the ladder
+    has no rung, so `serve.form_fallback` stays 0, the drill included."""
+    from onix_torch.utils.obs import counters
+    if counters.get("serve.form_fallback"):
+        raise AssertionError(f"{what}: serve.form_fallback = "
+                             f"{counters.get('serve.form_fallback')}")
+
+
+def row_hashes(df):
+    """The multiset of a frame's rows as sorted hashes (row order in a
+    store depends on which worker appended first)."""
+    import numpy as np
+    import pandas as pd
+    return np.sort(pd.util.hash_pandas_object(df, index=False).to_numpy())
+
+
+def phase_watch(card: str, root: pathlib.Path) -> None:
+    """(a) `watch --drain` over phase 11's four v5 files and one capture
+    cut inside its first packet header, with --procs 1 and --procs 2
+    into fresh stores, as a user runs it (`python -m onix_torch.cli`).
+    The reference's rules: one process carries the torn file through
+    the retry budget to quarantine (exit 1: its failed attempts count as
+    errors); worker processes give it one attempt a drain and leave it
+    (exit 1). Both stores hold phase 11 (d)'s 10^6 ingested rows; a
+    second drain ingests nothing."""
+    import hashlib
+    import os
+    import shutil
+
+    from onix_torch.store import Store
+    from onix_torch.utils.resilience import RetryPolicy
+    files = sorted((root / "stream_files").glob("day_*.nf5"))
+    want = Store(root / "ingest_store").read("flow", "2016-07-08")
+    attempts = RetryPolicy().max_attempts
+    cfg = subprocess.run(
+        [sys.executable, "-m", "onix_torch.cli", "config", "-s",
+         f"store.root={root / 'watch'}"], cwd=HERE, capture_output=True,
+        text=True, check=True, timeout=300).stdout
+    say(card, f"watch (a): `config` printed {len(cfg)} bytes, sha256 "
+              f"{hashlib.sha256(cfg.encode()).hexdigest()[:16]}")
+    for procs in (1, 2):
+        landing = root / f"watch_landing_{procs}"
+        landing.mkdir()
+        for f in files:
+            shutil.copy(f, landing / f.name)
+        (landing / "torn.nf5").write_bytes(files[0].read_bytes()[:20])
+        old = time.time() - 60
+        for f in landing.iterdir():
+            os.utime(f, (old, old))
+        store = root / f"watch_store_{procs}"
+        cmd = [sys.executable, "-m", "onix_torch.cli", "watch", "flow",
+               str(landing), "--procs", str(procs), "--drain",
+               "--max-seconds", "600", "-s", f"store.root={store}"]
+        lines = []
+        for run in (1, 2):
+            t0 = time.perf_counter()
+            out = subprocess.run(cmd, cwd=HERE, capture_output=True,
+                                 text=True, timeout=900)
+            wall = time.perf_counter() - t0
+            last = out.stdout.strip().splitlines()[-1] if out.stdout \
+                else out.stderr[-500:]
+            lines.append(last)
+            say(card, f"watch (a): --procs {procs} drain {run}: exit "
+                      f"{out.returncode}, {wall:.2f} s: {last}")
+            torn_quarantined = (landing / "quarantine" / "torn.nf5").exists()
+            if procs == 1:
+                want_line = (
+                    f"onix watch: {len(files)} files, {len(want)} rows, "
+                    f"{attempts} errors, {attempts - 1} retries, 1 "
+                    "quarantined, 0 salvaged" if run == 1 else
+                    "onix watch: 0 files, 0 rows, 0 errors, 0 retries, 0 "
+                    "quarantined, 0 salvaged")
+                want_rc, want_q = (1 if run == 1 else 0), True
+            else:
+                want_line = (f"onix watch: {len(files) if run == 1 else 0} "
+                             f"files, {len(want) if run == 1 else 0} rows, "
+                             "1 errors, 1 retries, 0 quarantined, 0 "
+                             "salvaged (2 workers)")
+                want_rc, want_q = 1, False
+            if (out.returncode, last, torn_quarantined) != \
+                    (want_rc, want_line, want_q):
+                raise AssertionError(
+                    f"watch --procs {procs} drain {run}: exit "
+                    f"{out.returncode}, {last!r}, torn quarantined "
+                    f"{torn_quarantined}; want {want_rc}, {want_line!r}, "
+                    f"{want_q}")
+        got = Store(store).read("flow", "2016-07-08")
+        if len(got) != len(want) or not (row_hashes(got)
+                                         == row_hashes(want)).all():
+            raise AssertionError(f"watch --procs {procs}: the store's "
+                                 f"{len(got)} rows are not phase 11 (d)'s "
+                                 f"{len(want)}")
+    say(card, f"watch (a): both stores hold {len(want)} rows equal to "
+              f"`ingest`'s; the torn capture quarantined after {attempts} "
+              "attempts in one process, retried once a drain by the "
+              "workers")
+    no_fallback("watch (a)")
+
+
+def sessions_recall(order, planted, depths) -> dict:
+    hits = set(int(i) for i in planted)
+    return {d: len(hits & set(order[:d].tolist())) / len(hits)
+            for d in depths}
+
+
+def phase_sessions(card: str) -> int:
+    """(b) `run_scale(generator="sessions")` for flow, dns and proxy at
+    the reference test's shape on K1 (bar: 0.3 of the planted), with
+    K1 launches of sweeps x blocks; then flow at the small recall
+    record's shape, its recall printed beside the record's (no bar).
+    Returns K1's launches."""
+    import numpy as np
+    import torch
+
+    from onix_torch.models import fused_serve as fs
+    from onix_torch.models import sample_count
+    from onix_torch.pipelines import scale
+    total = 0
+    for datatype in ("flow", "dns", "proxy"):
+        torch.cuda.synchronize()
+        sample_count.launches = 0
+        t0 = time.perf_counter()
+        m = scale.run_scale(SESSIONS_EVENTS, n_hosts=SESSIONS_HOSTS,
+                            n_sweeps=SESSIONS_SWEEPS, datatype=datatype,
+                            generator="sessions", max_results=SESSIONS_M)
+        wall = time.perf_counter() - t0
+        want = SESSIONS_SWEEPS * math.ceil(m["n_train_tokens"] / SCALE_BLOCK)
+        check_launches(f"sessions (b) {datatype}: K1", sample_count.launches,
+                       want)
+        total += sample_count.launches
+        hits, n = m["planted_in_bottom_k"], m["planted_anomalies"]
+        say(card, f"sessions (b): {datatype} {SESSIONS_EVENTS} events, "
+                  f"D={m['n_docs']} V={m['n_vocab']} N={m['n_train_tokens']}"
+                  f", K1 launches {sample_count.launches}; {hits} of {n} "
+                  f"planted in the bottom {SESSIONS_M} (bar {SESSIONS_BAR}); "
+                  f"{wall:.2f} s")
+        if hits < SESSIONS_BAR * n:
+            raise AssertionError(f"sessions (b) {datatype}: {hits} of {n}")
+    torch.cuda.synchronize()
+    sample_count.launches = fs.launches = 0
+    t0 = time.perf_counter()
+    with Calls(scale, "select_suspicious_events") as sel:
+        m = scale.run_scale(RECALL_SMALL["n_events"], datatype="flow",
+                            generator="sessions",
+                            n_hosts=RECALL_SMALL["n_hosts"],
+                            n_anomalies=RECALL_SMALL["n_anomalies"],
+                            n_sweeps=RECALL_SMALL["n_sweeps"],
+                            seed=RECALL_SMALL["seed"],
+                            max_results=max(RECALL_SMALL_DEPTHS))
+    wall = time.perf_counter() - t0
+    want = RECALL_SMALL["n_sweeps"] * math.ceil(m["n_train_tokens"]
+                                                / SCALE_BLOCK)
+    check_launches("sessions (b) small record: K1", sample_count.launches,
+                   want)
+    total += sample_count.launches
+    from onix_torch.pipelines.synth2 import SYNTH2_ARRAYS
+    planted = SYNTH2_ARRAYS["flow"](
+        RECALL_SMALL["n_events"], n_hosts=RECALL_SMALL["n_hosts"],
+        n_anomalies=RECALL_SMALL["n_anomalies"],
+        seed=RECALL_SMALL["seed"])["anomaly_idx"]
+    order = sel.calls[-1][2].indices.cpu().numpy()
+    order = order[order >= 0]
+    rec = sessions_recall(order, planted, RECALL_SMALL_DEPTHS)
+    if m["planted_in_bottom_k"] != round(rec[max(RECALL_SMALL_DEPTHS)]
+                                         * len(planted)):
+        raise AssertionError("sessions (b): the captured winners are not "
+                             "the manifest's")
+    say(card, f"sessions (b): flow at the small record's shape "
+              f"({RECALL_SMALL['n_events']} events, "
+              f"{RECALL_SMALL['n_anomalies']} planted, "
+              f"{RECALL_SMALL['n_sweeps']} sweeps, seed 0; run_scale's "
+              f"sharded engine at block 2^17, the record's GibbsLDA at "
+              f"2^14): D={m['n_docs']} V={m['n_vocab']}, K1 launches "
+              f"{sample_count.launches}, {wall:.2f} s; recall "
+              + ", ".join(f"top {d}: {rec[d]:.4f} (record "
+                          f"{RECALL_SMALL_REF[d]})" for d in rec)
+              + " (no bar: the record's beacon and exfil campaigns are "
+              "built to blend)")
+    no_fallback("sessions (b)")
+    return total
+
+
+def harness_oracle(dev):
+    """The plain single-tenant path on tables already on `dev`."""
+    import torch
+
+    from onix_torch.models import scoring
+
+    def oracle(tables, tenant, d, w, tol, max_results):
+        th, ph = tables[tenant]
+        return scoring.top_suspicious(
+            th, ph, torch.from_numpy(d).to(dev), torch.from_numpy(w).to(dev),
+            torch.ones(len(d), device=dev), tol=tol,
+            max_results=max_results)
+    return oracle
+
+
+def phase_replicas(card: str, root: pathlib.Path, table) -> int:
+    """(c) The phase-6 day model and the 63 harness tenants served by
+    `serve_background` with serving.replicas=2 on the one card (K2
+    pinned): /score answers equal the plain single-tenant path (phase
+    6's check); a /feedback reaches both replicas before the next
+    /score; after mark_down(0) every tenant re-homes off replica 0 and
+    its answers do not change; K2 launches equal the replicas'
+    dispatches. Peak allocated bytes at 1 and 2 replicas. Returns K2's
+    launches."""
+    import numpy as np
+    import torch
+
+    from onix_torch.checkpoint import load_model
+    from onix_torch.config import OnixConfig
+    from onix_torch.models import fused_serve as fs
+    from onix_torch.oa.serve import serve_background
+    from onix_torch.serving.replicas import ReplicaFront
+    from onix_torch.store import model_name
+    dev = "cuda"
+    models_dir = root / "day" / "models"
+    day = model_name("flow", SERVE_DATE)
+    names = sorted(n for n in (p.relative_to(models_dir).with_suffix("")
+                               .as_posix()
+                               for p in models_dir.rglob("*.npz"))
+                   if n.startswith(f"flow/{HARNESS_DATE.replace('-', '')}"))
+    if len(names) != HARNESS_TENANTS:
+        raise AssertionError(f"replicas (c): {len(names)} harness tenants "
+                             "on disk")
+    tables = {}
+    for n in [day, *names]:
+        ck = load_model(models_dir, n)
+        tables[n] = tuple(torch.from_numpy(ck.arrays[k]).to(dev)
+                          for k in ("theta", "phi_wk"))
+    oracle = harness_oracle(dev)
+    d_all, w_all, hour, _ = day_requests(table, OnixConfig().pipeline
+                                         .dupfactor)
+    rng = np.random.default_rng(12)
+    reqs = [(day, f"h{h:02d}", d_all[hour == h], w_all[hour == h])
+            for h in range(0, 24, 3)]
+    reqs += [(names[int(t)], f"w{i}",
+              rng.integers(0, HARNESS_D, HARNESS_EVENTS).astype(np.int32),
+              rng.integers(0, HARNESS_V, HARNESS_EVENTS).astype(np.int32))
+             for i, t in enumerate(rng.integers(0, HARNESS_TENANTS, 64))]
+
+    def body(rs, window=True):
+        return {"requests": [{"tenant": t, "window": win if window else None,
+                              "doc_ids": d.tolist(), "word_ids": w.tolist()}
+                             for t, win, d, w in rs]}
+
+    peaks, launches = {}, 0
+    for n_rep in (1, 2):
+        cfg = OnixConfig()
+        cfg.store.root = str(root / f"replicas_{n_rep}")
+        cfg.serving.models_dir = str(models_dir)
+        cfg.serving.replicas = n_rep
+        cfg.serving.serve_form = "fused"
+        cfg.validate()
+        tol, m = cfg.pipeline.tol, cfg.pipeline.max_results
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fs.launches = 0
+        server, port = serve_background(cfg)
+        try:
+            out, wall = http_json(port, "POST", "/score", body(reqs))
+            for (t, win, d, w), res in zip(reqs, out["results"]):
+                check_winners(res, oracle(tables, t, d, w, tol, m),
+                              f"replicas={n_rep} {t} {win}")
+            front = server.peek_bank_service()
+            if n_rep == 1:
+                torch.cuda.synchronize()
+                peaks[1] = torch.cuda.max_memory_allocated() - base
+                check_launches("replicas (c) one replica: K2", fs.launches,
+                               front.bank.dispatches)
+                launches += fs.launches
+                continue
+            if not isinstance(front, ReplicaFront) or \
+                    len(front.replicas) != 2:
+                raise AssertionError("replicas (c): no two-replica front")
+            homes = {t: front.home(t) for t in tables}
+            if len(set(homes.values())) != 2:
+                raise AssertionError("replicas (c): one replica homes "
+                                     "every tenant")
+            # Feedback: 3 benign pairs of h00's winners.
+            h0 = out["results"][0]
+            _, _, d0, w0 = reqs[0]
+            pairs = []
+            for i in h0["indices"]:
+                p = (int(d0[i]), int(w0[i]))
+                if p not in pairs:
+                    pairs.append(p)
+                if len(pairs) == 3:
+                    break
+            epochs0 = [s.bank.epoch(day) for s in front.replicas]
+            fb, _ = http_json(port, "POST", "/feedback", {
+                "datatype": "flow", "date": SERVE_DATE,
+                "rows": [{"ip": f"doc{dd}", "word": f"word{ww}", "label": 3,
+                          "doc_id": dd, "word_id": ww}
+                         for dd, ww in pairs]})
+            epochs1 = [s.bank.epoch(day) for s in front.replicas]
+            if not (fb["ok"] and all(b > a for a, b in zip(epochs0, epochs1))
+                    and all(s.bank.get_filter(day) is not None
+                            for s in front.replicas)):
+                raise AssertionError(f"replicas (c): feedback reached "
+                                     f"epochs {epochs0} -> {epochs1}")
+            again, _ = http_json(port, "POST", "/score", body(reqs[:1]))
+            res = again["results"][0]
+            alive = {(int(d0[i]), int(w0[i])) for i in res["indices"]
+                     if i >= 0}
+            if res["cached"] or alive & set(pairs):
+                raise AssertionError("replicas (c): the next /score after "
+                                     "/feedback kept a dismissed pair")
+            # Failover: replica 0 goes down; every tenant re-homes and
+            # the harness answers do not change.
+            front.mark_down(0)
+            moved = sum(homes[t] == 0 for t in names)
+            if any(front.home(t) == 0 for t in tables):
+                raise AssertionError("replicas (c): a tenant still homes "
+                                     "on the downed replica")
+            after, _ = http_json(port, "POST", "/score",
+                                 body(reqs[1:], window=False))
+            for (t, win, d, w), res in zip(reqs[1:], after["results"]):
+                check_winners(res, oracle(tables, t, d, w, tol, m),
+                              f"after failover {t} {win}")
+            stats, _ = http_json(port, "GET", "/bank/stats")
+            torch.cuda.synchronize()
+            peaks[2] = torch.cuda.max_memory_allocated() - base
+            dispatches = [s.bank.dispatches for s in front.replicas]
+        finally:
+            server.shutdown()
+            server.server_close()
+    torch.cuda.synchronize()
+    if not (fs.launches == sum(dispatches) == stats["dispatches"]
+            and fs.launches > 0):
+        raise AssertionError(f"replicas (c): K2 launched {fs.launches} "
+                             f"times, the replicas dispatched {dispatches}")
+    launches += fs.launches
+    if stats["tiers"]["replicas_alive"] != 1:
+        raise AssertionError(f"replicas (c): /bank/stats tiers "
+                             f"{stats['tiers']}")
+    say(card, f"replicas (c): 2 replicas on one card, {len(tables)} "
+              f"tenants: /score equal to the plain path; /feedback reached "
+              f"both replicas (epochs {epochs0} -> {epochs1}) and the next "
+              f"/score dropped the 3 dismissed pairs; after mark_down(0) "
+              f"{moved} harness tenants re-homed, answers unchanged; K2 "
+              f"launches {fs.launches} = replica dispatches {dispatches}; "
+              f"peak allocated bytes above the start: {peaks[1]} at 1 "
+              f"replica, {peaks[2]} at 2")
+    no_fallback("replicas (c)")
+    return launches
+
+
+def phase_harness(card: str) -> int:
+    """(d) The load harness at the reference's bench shape under "auto":
+    replay + sequential parity + the residency identity at capacity 8;
+    events/s of both arms, the dispatch collapse, the resolved forms; K2
+    launches equal the bank's dispatches, as the gate implies. Then the
+    overload cell three times. Returns K2's launches."""
+    import torch
+
+    from onix_torch.models import fused_serve as fs
+    from onix_torch.serving import load_harness as lh
+    from onix_torch.utils.obs import counters
+    spec = lh.HarnessSpec(**BENCH_SPEC, capacity=BENCH_CAPACITY)
+    serve = fs.select_serve_form("auto", spec.events_per_request, "cuda")
+    torch.cuda.synchronize()
+    fs.launches = 0
+    d0 = counters.get("bank.dispatch")
+    t0 = time.perf_counter()
+    out = lh.run_harness(spec)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    dispatches = counters.get("bank.dispatch") - d0
+    check_launches(f"harness (d): K2 (auto resolves {serve})", fs.launches,
+                   dispatches if serve == "fused" else 0)
+    if not (out["parity_bit_identical"]
+            and out["capped_winners_identical_to_uncapped"]):
+        raise AssertionError("harness (d): parity or residency identity")
+    b, sq = out["banked"], out["sequential"]
+    say(card, f"harness (d): {spec.n_tenants} tenants, D {spec.n_docs}, V "
+              f"{spec.n_vocab}, K {spec.n_topics}, {spec.n_requests} "
+              f"requests of {spec.events_per_request} events in batches of "
+              f"{spec.batch_requests}, capacity {spec.capacity}, uncached: "
+              f"banked {b['events_per_sec']} events/s, sequential "
+              f"{sq['events_per_sec']} events/s "
+              f"({out['speedup_banked_vs_sequential']}x); dispatches "
+              f"{sq['dispatches']} -> {b['dispatches']}; evictions "
+              f"{b['residency_churn']['evicts']}; resolved serve forms "
+              f"{out['resolved_forms']}; parity and residency "
+              f"identity hold; K2 launches {fs.launches} = bank dispatches "
+              f"{dispatches}; {wall:.2f} s")
+    launches = fs.launches
+    for run in range(OVERLOAD_RUNS):
+        torch.cuda.synchronize()
+        fs.launches = 0
+        cell = lh.overload_cell(lh.HarnessSpec(**BENCH_SPEC))
+        o = cell["overload"]
+        launches += fs.launches
+        say(card, f"harness (d): overload cell run {run + 1}: "
+                  f"max_queue_depth 1, {o['n_producers']} producers, "
+                  f"{o['attempts']} attempts: {json.dumps(o['outcomes'])}; "
+                  f"served p50 {o['served_p50_ms']} ms, p99 "
+                  f"{o['served_p99_ms']} ms (uncontended p50 "
+                  f"{cell['uncontended']['p50_ms']}, p99 "
+                  f"{cell['uncontended']['p99_ms']} ms); offered "
+                  f"{o['offered_factor_vs_sustainable']}x sustainable; "
+                  f"{o['served_answers_checked']} served answers equal the "
+                  f"unloaded ones; shed probes {cell['shed_probe']}")
+    no_fallback("harness (d)")
+    return launches
+
+
+def phase_forms(card: str) -> int:
+    """(e) The harness waves under serve_form "xla" and "fused": xla
+    against fused by F0's contract (winners exact, scores within 8
+    ulps); each arm's wave time. The ladder drill: on the card the
+    ladder has no rung, so a K2 failure propagates. Returns K2's
+    launches."""
+    import numpy as np
+    import torch
+
+    from onix_torch.models import fused_serve as fs
+    from onix_torch.serving import load_harness as lh
+    spec = lh.HarnessSpec(**BENCH_SPEC)
+    models, stream = lh.make_tenants(spec), lh.make_stream(spec)
+    batch = stream[:spec.batch_requests]
+    launches = 0
+    answers, times = {}, {}
+    for serve in ("xla", "fused"):
+        svc = lh.build_service(spec, models, serve_form=serve)
+        torch.cuda.synchronize()
+        fs.launches = 0
+        res = lh.replay(svc, stream, tol=spec.tol,
+                        max_results=spec.max_results)
+        torch.cuda.synchronize()
+        check_launches(f"forms (e) {serve}: K2", fs.launches,
+                       res["dispatches"] if serve == "fused" else 0)
+        launches += fs.launches
+        answers[serve] = [r.topk for r in res["results"]]
+        # Timing calls are no serving path: their launches are not kept.
+        times[serve] = event_ms(lambda: svc.bank.score_batch(
+            batch, tol=spec.tol, max_results=spec.max_results), reps=10)
+    worst = 0.0
+    for i, (a, c) in enumerate(zip(answers["xla"], answers["fused"])):
+        fin = np.isfinite(a.scores)
+        if not (np.array_equal(a.indices, c.indices)
+                and np.array_equal(fin, np.isfinite(c.scores))):
+            raise AssertionError(f"forms (e): xla and fused winners differ "
+                                 f"at request {i}")
+        rel = np.abs(a.scores[fin] - c.scores[fin]) / c.scores[fin]
+        worst = max(worst, float(rel.max(initial=0.0)))
+    if worst > STREAM_ULPS:
+        raise AssertionError(f"forms (e): xla against fused {worst:.3g} "
+                             "relative")
+    say(card, f"forms (e): {len(stream)} harness requests under xla and "
+              f"fused: winners equal, scores within {worst:.3g} relative "
+              f"(bound {STREAM_ULPS:.3g}); one wave of "
+              f"{spec.batch_requests} x {spec.events_per_request} events "
+              f"through score_batch, ms (CUDA events, median of 10): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    no_fallback("forms (e)")
+
+    # The ladder drill: K2's wrapper raises in-process. The ladder's
+    # rung is plain PyTorch in place of K2, so on the card the failure
+    # propagates whether the flag is on or off.
+    real = fs.bank_score_fused
+
+    def boom(*a, **kw):
+        raise RuntimeError("fused_serve kernel launch failed: injected")
+    propagated = []
+    fs.bank_score_fused = boom
+    try:
+        for flag in (True, False):
+            svc = lh.build_service(spec, models, serve_form="fused")
+            svc.bank.degrade_form_fallback &= flag
+            if svc.bank.degrade_form_fallback:
+                raise AssertionError("forms (e): the ladder is armed on "
+                                     "the card")
+            try:
+                svc.submit(batch, tol=spec.tol,
+                           max_results=spec.max_results)
+            except RuntimeError as e:
+                propagated.append(str(e))
+            else:
+                raise AssertionError(f"forms (e): with the flag "
+                                     f"{flag} the K2 failure did not "
+                                     "propagate")
+            if svc.bank.fallback_dispatches:
+                raise AssertionError("forms (e): a wave fell back")
+    finally:
+        fs.bank_score_fused = real
+    no_fallback("forms (e) drill")
+    say(card, f"forms (e): ladder drill: with degrade_form_fallback on "
+              f"(the default) and off the K2 failure propagates "
+              f"({propagated[0]!r}); no wave fell back")
+    return launches
+
+
+def phase_rescore(card: str, root: pathlib.Path, table) -> int:
+    """(e) The three `*_filtered_fast` dispatchers at the day's shapes
+    with a 3-key filter, both forms: equal winners, one K2 launch a
+    fused call. Returns K2's launches."""
+    import numpy as np
+    import torch
+
+    from onix_torch.checkpoint import load_model
+    from onix_torch.config import OnixConfig
+    from onix_torch.feedback import rescore
+    from onix_torch.feedback.filter import HostFilter, pack_pair, split_key
+    from onix_torch.models import fused_serve as fs
+    from onix_torch.models import scoring
+    from onix_torch.store import model_name
+    launches = 0
+
+    # The filtered dispatchers at the day's shapes.
+    cfg = OnixConfig()
+    saved = load_model(root / "day" / "models", model_name("flow",
+                                                           SERVE_DATE))
+    theta = torch.from_numpy(saved.arrays["theta"]).cuda()
+    phi = torch.from_numpy(saved.arrays["phi_wk"]).cuda()
+    d_all, w_all, _, bundle = day_requests(table, cfg.pipeline.dupfactor)
+    n = len(table)
+    v = phi.shape[0]
+    flat = d_all.astype(np.int64) * v + w_all
+    tab = scoring.score_table(theta, phi).reshape(-1)
+    t = {k: torch.from_numpy(np.ascontiguousarray(a)).cuda() for k, a in (
+        ("si", flat[:n].astype(np.int32)), ("di", flat[n:].astype(np.int32)),
+        ("d", d_all[:n]), ("w", w_all[:n]))}
+    dw_hi, dw_lo = (torch.from_numpy(h.view(np.int32)).cuda()
+                    for h in split_key(pack_pair(d_all[:n], w_all[:n])))
+    sd_hi, sd_lo = (torch.from_numpy(h.view(np.int32)).cuda()
+                    for h in split_key(pack_pair(d_all[:n], d_all[n:])))
+    mask = torch.ones(n, device="cuda")
+    m = cfg.pipeline.max_results
+    calls = {
+        "table_pair_bottom_k_filtered_fast": lambda f, form: (
+            rescore.table_pair_bottom_k_filtered_fast(
+                tab, t["si"], t["di"], t["w"], sd_hi, sd_lo, f, tol=1.0,
+                max_results=m, serve_form=form)),
+        "table_bottom_k_filtered_fast": lambda f, form: (
+            rescore.table_bottom_k_filtered_fast(
+                tab, t["si"], t["w"], dw_hi, dw_lo, f, tol=1.0,
+                max_results=m, serve_form=form)),
+        "top_suspicious_filtered_fast": lambda f, form: (
+            rescore.top_suspicious_filtered_fast(
+                theta, phi, t["d"], t["w"], mask, dw_hi, dw_lo, f, tol=1.0,
+                max_results=m, serve_form=form)),
+    }
+    for name, call in calls.items():
+        plain = call(HostFilter.empty().tables(device="cuda"), "xla")
+        win = plain.indices.cpu().numpy()
+        pairs = (pack_pair(d_all[:n], d_all[n:]) if "pair" in name
+                 else pack_pair(d_all[:n], w_all[:n]))
+        filt = HostFilter.empty().merged(
+            word_suppress=w_all[win[:1]].astype(np.uint64),
+            pair_suppress=pairs[win[5:6]],
+            pair_boost=pairs[win[200:201]]).tables(device="cuda")
+        got = {}
+        for form in ("xla", "fused"):
+            torch.cuda.synchronize()
+            fs.launches = 0
+            got[form] = call(filt, form)
+            torch.cuda.synchronize()
+            check_launches(f"rescore (e) {name} {form}: K2", fs.launches,
+                           1 if form == "fused" else 0)
+            launches += fs.launches
+        a, b = got["xla"], got["fused"]
+        if not (torch.equal(a.indices, b.indices)
+                and torch.equal(a.scores, b.scores)):
+            raise AssertionError(f"rescore (e): {name}: the forms differ")
+        if torch.equal(a.indices, plain.indices):
+            raise AssertionError(f"rescore (e): {name}: the filter moved "
+                                 "nothing")
+        say(card, f"rescore (e): {name}, N {n}, M {m}, 3-key filter: xla "
+                  f"and fused equal bit for bit, one K2 launch for the "
+                  f"fused call")
+    no_fallback("rescore (e)")
+    return launches
+
+
+# -- phase 12 (f) -----------------------------------------------------------
+
+# The serve gate's sweeps, in the gate's unit (events a scan): a table
+# scan of N = 2^10 ... 2^24 events at the default pipeline M, on a table
+# of the phase-5 day's size; a bank wave of the harness's 48 rows
+# (padded to 64, as the bank pads them) at 2^6 ... 2^14 events a row,
+# the per-lane count the bank keys the gate on.
+GATE_LOG2 = range(10, 25)
+GATE_BANK_LOG2 = range(6, 15)
+GATE_M = 2000
+GATE_PASSES = 3
+
+
+def gate_position(n_events: float, grid: range) -> int:
+    """Where an events threshold falls on a sweep's grid: 0 for anything
+    up to its first size, else the exponent's step above it."""
+    if n_events <= 1 << grid[0]:
+        return 0
+    return math.ceil(math.log2(n_events)) - grid[0]
+
+
+def gate_crossover(passes: list, grid: range) -> int:
+    """The smallest swept N from which the fused arm wins at every
+    larger N in every pass (0 when it wins everywhere), or -1 when it
+    loses at the largest N."""
+    wins = [all(ps[i]["fused"] < ps[i]["other"] for ps in passes)
+            for i in range(len(grid))]
+    if not wins[-1]:
+        return -1
+    first = len(wins) - 1
+    while first > 0 and wins[first - 1]:
+        first -= 1
+    return 0 if first == 0 else 1 << grid[first]
+
+
+def gate_sweep(card: str, label: str, other: str, grid: range, make) -> int:
+    """Three passes of `make(n, first)` -> (fused, other) calls over the
+    grid, each timed with CUDA events (median of 30 after warm calls);
+    prints the table and returns the crossover."""
+    passes = []
+    for p in range(GATE_PASSES):
+        row = []
+        for e in grid:
+            fused, alt = make(1 << e, p == 0)
+            row.append({"fused": event_ms(fused), "other": event_ms(alt)})
+        passes.append(row)
+    got = gate_crossover(passes, grid)
+    say(card, f"gate (f) {label}: N | fused ms (3 passes) | {other} ms "
+              f"(3 passes)")
+    for i, e in enumerate(grid):
+        say(card, f"gate (f) {label}: 2^{e} | "
+                  + " ".join(f"{ps[i]['fused']:.4f}" for ps in passes)
+                  + " | " + " ".join(f"{ps[i]['other']:.4f}"
+                                     for ps in passes))
+    say(card, f"gate (f) {label}: crossover {got} events (the smallest N "
+              f"from which fused wins at every larger N in all "
+              f"{GATE_PASSES} passes; 0 = at every N, -1 = not at the "
+              f"largest)")
+    return got
+
+
+def phase_gate(card: str) -> int:
+    """(f) The serve gate's crossover, per consumer, on identical inputs
+    per arm: the fused select with its two table gathers
+    (`fused_table_pair_bottom_k`) against the torch f32 scan
+    (`scoring.table_pair_bottom_k`) at N = 2^10 ... 2^24 events, and
+    the bank's fused wave (`bank_score_fused`) against its xla wave
+    (`model_bank._bank_score_gather`) on the harness's tenants at 2^6
+    ... 2^14 events a row. Asserts that the arms agree at every N
+    (exactly for the scan; winners exact and scores within 8 ulps for
+    the bank), and that `_SERVE_FUSED_MIN_EVENTS["cuda"]` is each
+    sweep's crossover within one power of two. Launches here compare
+    arms and are not counted. Returns the scan's crossover."""
+    import numpy as np
+    import torch
+
+    from onix_torch.models import fused_serve as fs
+    from onix_torch.models import scoring
+    from onix_torch.serving import load_harness as lh
+    from onix_torch.serving import model_bank as mb
+    g = torch.Generator(device="cuda")
+    g.manual_seed(12)
+    tab = torch.rand(MAIN_D * MAIN_V, generator=g, device="cuda")
+
+    def scan_arms(n, first):
+        si = torch.randint(0, tab.numel(), (n,), generator=g,
+                           device="cuda", dtype=torch.int32)
+        di = torch.randint(0, tab.numel(), (n,), generator=g,
+                           device="cuda", dtype=torch.int32)
+
+        def fused():
+            return fs.fused_table_pair_bottom_k(
+                tab, si, di, tol=1.0, max_results=GATE_M)
+
+        def scan():
+            return scoring.table_pair_bottom_k(
+                tab, si, di, tol=1.0, max_results=GATE_M)
+        if first:
+            a, b = fused(), scan()
+            if not (torch.equal(a.indices, b.indices)
+                    and torch.equal(a.scores, b.scores)):
+                raise AssertionError(f"gate: the scan arms differ at N={n}")
+        return fused, scan
+
+    # The bank's waves: every harness tenant resident in one shard, the
+    # wave's rows padded as `ModelBank._score_wave` pads them.
+    spec = lh.HarnessSpec(**BENCH_SPEC)
+    models = lh.make_tenants(spec)
+    bank = lh.build_service(spec, models, serve_form="fused").bank
+    one = np.zeros(1, np.int32)
+    bank.score_batch([mb.ScoreRequest(t, one, one) for t in models],
+                     tol=spec.tol, max_results=spec.max_results)
+    (shard,) = bank._shards.values()
+    tenants = list(shard.lru)
+    r = spec.batch_requests
+    r_pad = 1 << (r - 1).bit_length()
+    rng = np.random.default_rng(12)
+
+    def bank_arms(n, first):
+        slots = np.zeros(r_pad, np.int32)
+        slots[:r] = [shard.lru[tenants[i % len(tenants)]] for i in range(r)]
+        d = np.zeros((r_pad, n), np.int32)
+        w = np.zeros((r_pad, n), np.int32)
+        m = np.zeros((r_pad, n), np.float32)
+        d[:r] = rng.integers(0, spec.n_docs, (r, n))
+        w[:r] = rng.integers(0, spec.n_vocab, (r, n))
+        m[:r] = 1.0
+        lens = np.where(np.arange(r_pad) < r, n, 0).astype(np.int32)
+        t = {k: torch.from_numpy(a).cuda() for k, a in (
+            ("slots", slots), ("d", d), ("w", w), ("m", m), ("lens", lens))}
+        args = (shard.theta, shard.phi, t["slots"], t["d"], t["w"], t["m"],
+                spec.tol, None)
+
+        def fused():
+            return fs.bank_score_fused(*args, max_results=spec.max_results,
+                                       row_len=t["lens"])
+
+        def xla():
+            return mb._bank_score_gather(*args,
+                                         max_results=spec.max_results)
+        if first:
+            a, b = fused(), xla()
+            fin = torch.isfinite(b.scores)
+            rel = torch.where(fin, (a.scores - b.scores).abs()
+                              / b.scores.abs(), torch.zeros_like(b.scores))
+            if not (torch.equal(a.indices, b.indices)
+                    and torch.equal(fin, torch.isfinite(a.scores))
+                    and float(rel.max()) <= STREAM_ULPS):
+                raise AssertionError(f"gate: the bank arms differ at "
+                                     f"{n} events a row")
+        return fused, xla
+
+    got = gate_sweep(card, f"table scan, M {GATE_M}", "f32 scan",
+                     GATE_LOG2, scan_arms)
+    got_bank = gate_sweep(card, f"bank wave, {r} rows (padded to {r_pad}), "
+                                f"M {spec.max_results}, events a row",
+                          "xla wave", GATE_BANK_LOG2, bank_arms)
+    row = fs._SERVE_FUSED_MIN_EVENTS.get("cuda")
+    say(card, f"gate (f): _SERVE_FUSED_MIN_EVENTS['cuda'] = {row}; "
+              f"crossover: table scan {got}, bank wave {got_bank} events")
+    for label, cross, grid in (("table scan", got, GATE_LOG2),
+                               ("bank wave", got_bank, GATE_BANK_LOG2)):
+        if cross < 0:
+            raise AssertionError(f"gate (f): {label}: the fused arm loses "
+                                 "at the largest N")
+        if row is None or abs(gate_position(row, grid)
+                              - gate_position(cross, grid)) > 1:
+            raise AssertionError(f"gate (f): the gate's cuda row {row} is "
+                                 f"not the {label} crossover {cross} "
+                                 "within one power of two")
+    no_fallback("gate (f)")
+    return got
+
+
 def main() -> int:
     try:
         import torch
@@ -2878,6 +3714,7 @@ def main() -> int:
         clean = day_outputs(root / "day" / "results")
         dense_ll = clean["manifest"]["ll_history"][-1][1]
         launches.update(phase_serve(card, root / "day", table))
+        no_fallback("phases 5-6")
         chain_launches, _, _, chain_recall = phase_slice(
             card, root / "chains", chains=8)
         say(card, f"slice: recall at 8 chains {chain_recall:.4f}, at one "
@@ -2888,21 +3725,34 @@ def main() -> int:
         phase_overlap(card)
         t8 = time.perf_counter()
         phase_resilience(card, root, table, clean)
+        no_fallback("phases 7-8")
         say(card, f"phase 8 passed in {time.perf_counter() - t8:.1f} s")
         t9 = time.perf_counter()
         scale_rows, host_arm = phase_scale(card, root, table, planted)
         for name, scale_row in scale_rows.items():
             rows[name]["scale"] = scale_row
+        no_fallback("phase 9")
         say(card, f"phase 9 passed in {time.perf_counter() - t9:.1f} s")
         t10 = time.perf_counter()
         rows["sample_count"].update(phase_sparse_svi(card, root, table,
                                                      planted, dense_ll))
+        no_fallback("phase 10")
         say(card, f"phase 10 passed in {time.perf_counter() - t10:.1f} s")
         t11 = time.perf_counter()
         stream_row = phase_stream(card, root, table, planted, host_arm)
         rows["fused_serve"]["stream"] = stream_row
         launches["fused_serve"] += stream_row["launches"]
+        no_fallback("phase 11")
         say(card, f"phase 11 passed in {time.perf_counter() - t11:.1f} s")
+        t12 = time.perf_counter()
+        phase_watch(card, root)
+        launches["sample_count"] += phase_sessions(card)
+        launches["fused_serve"] += phase_replicas(card, root, table)
+        launches["fused_serve"] += phase_harness(card)
+        launches["fused_serve"] += phase_forms(card)
+        launches["fused_serve"] += phase_rescore(card, root, table)
+        rows["fused_serve"]["gate_crossover_events"] = phase_gate(card)
+        say(card, f"phase 12 passed in {time.perf_counter() - t12:.1f} s")
     for name, row in rows.items():
         row["launches"] = launches[name]
     say(card, f"all phases passed in {time.perf_counter() - t0:.1f} s")

@@ -1,5 +1,7 @@
 """Command line of the PyTorch port.
 
+    python -m onix_torch.cli config [-c CONFIG] [-s KEY.PATH=VALUE ...]
+        [--device cuda|cpu]
     python -m onix_torch.cli score <date> <flow|dns|proxy> [--tol T]
         [--max-results N] [--engine gibbs|svi|sharded] [--fault-inject SWEEP]
         [--fault-plan PLAN] [-c CONFIG] [-s KEY.PATH=VALUE ...]
@@ -9,20 +11,28 @@
         [-s KEY.PATH=VALUE ...] [--device cuda|cpu]
     python -m onix_torch.cli ingest <flow|dns|proxy> FILE... [-c CONFIG]
         [-s KEY.PATH=VALUE ...] [--device cuda|cpu]
+    python -m onix_torch.cli watch <flow|dns|proxy> LANDING_DIR [--procs P]
+        [--max-seconds S] [--drain] [-c CONFIG] [-s KEY.PATH=VALUE ...]
+        [--device cuda|cpu]
     python -m onix_torch.cli stream <flow|dns|proxy> FILE... [--buckets V]
         [--epochs E] [--superstep S] [--prefetch-depth K]
         [--prefetch-mode auto|thread|process] [--fault-plan PLAN]
         [-c CONFIG] [-s KEY.PATH=VALUE ...] [--device cuda|cpu]
 
-The `onix score`, `onix serve`, `onix ingest` and `onix stream`
-subcommands of `onix/cli.py` on the port. `ingest` decodes raw files
-(NetFlow v5/v9/IPFIX/nfcapd, tshark TSV or pcap, Bluecoat logs) into
-the store; it runs on the host, and `--device` names the card it would
-have (it raises without one unless `--device cpu`), as every command
-does. `stream` scores each file as one minibatch of the online-VB
-model (`pipelines/streaming.py`) and appends its alerts to
-`<results>/<day>/<type>_streaming.csv`. `score -s serving.save_fitted=true` persists the day's model
-under serving.models_dir; `serve` answers `POST /score` from a model
+The `onix config`, `onix score`, `onix serve`, `onix ingest`,
+`onix watch` and `onix stream` subcommands of `onix/cli.py` on the
+port. `config` prints the resolved configuration, the reference's bytes.
+`ingest` decodes raw files (NetFlow v5/v9/IPFIX/nfcapd, tshark TSV or
+pcap, Bluecoat logs) into the store; `watch` polls a landing directory
+and ingests each file once it has stopped growing (`--procs` > 1 fans
+out over spawned worker processes sharing an on-disk claim ledger,
+`--drain` exits once nothing is left to claim). These three run on the
+host, and `--device` names the card they would have (they raise without
+one unless `--device cpu`), as every command does. `stream` scores each
+file as one minibatch of the online-VB model (`pipelines/streaming.py`)
+and appends its alerts to `<results>/<day>/<type>_streaming.csv`.
+`score -s serving.save_fitted=true` persists the day's model under
+serving.models_dir; `serve` answers `POST /score` from a model
 bank on the device (`onix_torch/oa/serve.py`). The device defaults to
 the card; `--device cpu` runs on the CPU. `--fault-inject N`
 preempts the Gibbs fit after sweep N (ONIX_FAULT_SWEEP), and
@@ -60,6 +70,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="onix_torch",
         description="onix on PyTorch / CUDA (the H100 port)")
     sub = parser.add_subparsers(dest="command", required=True)
+    p_cfg = sub.add_parser("config", help="print the resolved configuration")
+    _add_common(p_cfg)
     p_score = sub.add_parser(
         "score", help="run the suspicious-connects scoring pipeline for one "
                       "day of one datatype")
@@ -91,6 +103,18 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common(p_ingest)
     p_ingest.add_argument("datatype", choices=("flow", "dns", "proxy"))
     p_ingest.add_argument("paths", nargs="+", help="raw capture/log files")
+    p_watch = sub.add_parser(
+        "watch", help="watch a landing directory and ingest new files; "
+                      "--procs fans out over worker processes")
+    _add_common(p_watch)
+    p_watch.add_argument("datatype", choices=("flow", "dns", "proxy"))
+    p_watch.add_argument("landing_dir")
+    p_watch.add_argument("--procs", type=int, default=1,
+                         help="worker processes (1 = in-process watcher)")
+    p_watch.add_argument("--max-seconds", type=float, default=None,
+                         help="stop after this long (default: forever)")
+    p_watch.add_argument("--drain", action="store_true",
+                         help="exit once a poll finds nothing to claim")
     p_stream = sub.add_parser(
         "stream", help="streaming scoring: online-VB model updated and "
                        "scored per ingest minibatch (one file = one batch)")
@@ -131,11 +155,19 @@ def main(argv: list[str] | None = None) -> int:
     # so a drill's flight record lands under <store.root>/telemetry.
     from onix_torch.utils import telemetry
     telemetry.apply_config(cfg.telemetry)
-    if args.command == "ingest":
+    if args.command in ("config", "ingest", "watch"):
+        # Host work: the device is named, and refused without a card,
+        # but never touched.
         from onix_torch.device import resolve_device
-        from onix_torch.ingest.run import run_ingest
         resolve_device(args.device)
+    if args.command == "config":
+        print(cfg.to_json())
+        return 0
+    if args.command == "ingest":
+        from onix_torch.ingest.run import run_ingest
         return run_ingest(cfg, args.datatype, args.paths)
+    if args.command == "watch":
+        return _watch(cfg, args)
     if args.command == "stream":
         if args.fault_plan is not None:
             from onix_torch.utils import faults
@@ -178,6 +210,50 @@ def main(argv: list[str] | None = None) -> int:
         faults.install_plan(args.fault_plan)    # parse errors exit now
     from onix_torch.pipelines.run import run_scoring
     return run_scoring(cfg, engine=args.engine, device=args.device)
+
+
+def _watch(cfg, args) -> int:
+    """`watch`: the reference's worker fan-out or in-process watcher,
+    its drain loop and its summary line; exit 1 if any file failed."""
+    if args.procs > 1:
+        from onix_torch.ingest.mpingest import run_workers
+        stats = run_workers(cfg, args.datatype, args.landing_dir,
+                            n_procs=args.procs,
+                            max_seconds=args.max_seconds,
+                            idle_exit=args.drain)
+        print(f"onix watch: {stats['files']} files, {stats['rows']} "
+              f"rows, {stats['errors']} errors, "
+              f"{stats.get('retries', 0)} retries, "
+              f"{stats.get('quarantined', 0)} quarantined, "
+              f"{stats.get('salvaged', 0)} salvaged "
+              f"({stats['workers']} workers)")
+        return 1 if stats["errors"] else 0
+    import time
+    from onix_torch.ingest.watcher import IngestWatcher
+    w = IngestWatcher(cfg, args.datatype, args.landing_dir,
+                      require_stable=not args.drain)
+    if args.drain:
+        # Drain until nothing dispatches AND no failed file is still
+        # inside its retry budget: a drain carries every failure to its
+        # salvage-or-quarantine verdict.
+        t0 = time.monotonic()
+        while True:
+            dispatched = w.poll_once()
+            if not dispatched and not w.pending_retries():
+                break
+            if (args.max_seconds is not None
+                    and time.monotonic() - t0 > args.max_seconds):
+                break
+            if not dispatched:
+                time.sleep(min(w.poll_interval, 0.2))
+    else:
+        w.run(max_seconds=args.max_seconds)
+    print(f"onix watch: {w.stats['files']} files, {w.stats['rows']} "
+          f"rows, {w.stats['errors']} errors, "
+          f"{w.stats['retries']} retries, "
+          f"{w.stats['quarantined']} quarantined, "
+          f"{w.stats['salvaged']} salvaged")
+    return 1 if w.stats["errors"] else 0
 
 
 if __name__ == "__main__":

@@ -1,2 +1,3 @@
 """Analyst feedback loop, read side: the compiled noise filter
-(`filter`), the port of `onix/feedback/`."""
+(`filter`) and the filtered selection scans with their serve-gated
+dispatchers (`rescore`), the port of `onix/feedback/`."""

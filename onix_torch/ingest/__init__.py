@@ -1,2 +1,3 @@
-"""Raw telemetry decoders and the ingest run — the port's own copies of
-`onix/ingest/{run,parsers,pcap,nfdecode}.py`."""
+"""Raw telemetry decoders, the ingest run and the landing-directory
+watchers — the port's own copies of
+`onix/ingest/{run,parsers,pcap,nfdecode,watcher,mpingest}.py`."""

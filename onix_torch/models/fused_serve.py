@@ -26,9 +26,11 @@ entry points that end in it. Pieces:
   kernel runs.
 - `kernel_form`, which of the kernel's two forms a call of given sizes
   runs (the kernel picks it by shape alone).
-- `select_serve_form`, the serve gate of the scale run's table scans
-  (`scoring.table_*_fast`): "fused" takes this kernel, "xla" the torch
-  f32 scan. The model bank keeps its own gate (`model_bank`).
+- `select_serve_form`, the one serve gate of every consumer: the
+  model bank's waves, the scale run's table scans
+  (`scoring.table_*_fast`), the filtered scans (`feedback.rescore`) and
+  the stream tail. "fused" takes this kernel, "xla" the torch f32
+  scan.
 
 Differences from the reference's `_fused_call`: a leading request-row
 axis (1-d inputs are one row); the "dot" mode takes the tables and the
@@ -69,12 +71,23 @@ from onix_torch.models.scoring import (TopK, score_events_in_order,
 #: Kernel launches since the count was last set to 0.
 launches = 0
 
-# Events a call from which the fused kernel beats the torch f32 scan,
+# Events a scan from which the fused kernel beats the torch f32 scan,
 # keyed on the torch device type — the reference's
-# `_SERVE_FUSED_MIN_EVENTS` (`onix/models/pallas_serve.py:118`). Empty,
-# as the reference's is: no measured crossover exists, so "auto"
-# resolves to "xla" on every device.
-_SERVE_FUSED_MIN_EVENTS: dict[str, float] = {}
+# `_SERVE_FUSED_MIN_EVENTS` (`onix/models/pallas_serve.py:118`). The
+# unit is events per scan: per lane for a bank wave, N for a table scan
+# or a stream tail.
+# cuda: 0. On an NVIDIA H100 80GB HBM3 at a 700.00 W power limit,
+# `chip_smoke.py` phase 12 (f) times each consumer's two arms (CUDA
+# events, median of 30, three passes): the fused select with its two
+# table gathers against the torch f32 scan at N = 2^10 ... 2^24 (M
+# 2,000): 0.037 against 0.27-0.43 ms at 2^10, 1.08 against 2.00-2.05
+# ms at 2^24; and a bank wave of 48 rows (M 100) through K2 against
+# the xla form at 2^6 ... 2^14 events a row: 0.020 against 0.44-0.54
+# ms at 2^6, 0.067 against 2.86-2.96 ms at 2^14. The fused arm won at
+# every size in every pass of both. The smoke asserts this row against
+# both sweeps. No "cpu" row: K2's plain version is a correctness
+# vehicle.
+_SERVE_FUSED_MIN_EVENTS: dict[str, float] = {"cuda": 0}
 
 
 def select_serve_form(form: str, n_events: int, device) -> str:

@@ -477,8 +477,8 @@ def _screened_enabled() -> bool:
 def table_bottom_k_fast(table_flat, idx, table_bf16=None, *, tol: float,
                         max_results: int, serve_form: str = "auto") -> TopK:
     """Drop-in `table_bottom_k`: kernel K2 when the serve gate resolves
-    "fused" (`fused_serve.select_serve_form`: "auto" resolves "xla" on
-    every device until a measured crossover lands; ONIX_SERVE_FORM
+    "fused" (`fused_serve.select_serve_form`: "auto" resolves by the
+    measured table, "fused" at every N on the card; ONIX_SERVE_FORM
     overrides), else the bf16-screened scan when enabled
     (`_screened_enabled`), falling back to the f32 scan whenever the
     screen does not certify its result; the f32 scan otherwise. Every

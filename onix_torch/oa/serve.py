@@ -16,8 +16,11 @@ A stdlib threading HTTP server with the reference's serving routes:
 The dashboards, the data mount and the hosted notebooks of the
 reference answer 501: they are queued in ROADMAP.md (queue 1, item
 19). The bank service is built on the first `/score` on the server's
-torch device (default the card; there is no fallback).
-`serving.replicas > 1` raises NotImplementedError.
+torch device (default the card; there is no fallback). With
+`serving.replicas` N > 1 it is N services behind a
+`serving.replicas.ReplicaFront`, every replica's bank on that one
+device: tenants home by crc32, feedback reaches every replica before
+its next score, and a downed replica's tenants re-home.
 """
 
 from __future__ import annotations
@@ -31,7 +34,6 @@ import numpy as np
 import pandas as pd
 import torch
 
-from onix_torch import not_ported
 from onix_torch.config import OnixConfig
 from onix_torch.device import resolve_device
 from onix_torch.oa.feedback import append_feedback
@@ -247,19 +249,35 @@ class ServeHandler(BaseHTTPRequestHandler):
         from onix_torch.checkpoint import list_models
         from onix_torch.utils.obs import counters
         service = self.server.bank_service(self.cfg)
+        front = getattr(service, "replicas", None)
         with service.lock:
-            stats = {
-                "tenants_registered": len(service.bank.tenants()),
-                "dispatches": service.bank.dispatches,
-                "compiled_shapes": len(service.bank.compiled_shapes),
-                "tiers": service.bank.tier_stats(),
+            if front is not None:
+                # A replica front: the per-replica banks aggregated;
+                # `tiers` carries each replica's residency.
+                banks = [s.bank for s in front]
+                stats = {
+                    "tenants_registered": sum(len(b.tenants())
+                                              for b in banks),
+                    "dispatches": sum(b.dispatches for b in banks),
+                    "compiled_shapes": sum(len(b.compiled_shapes)
+                                           for b in banks),
+                    "tiers": service.tier_stats(),
+                }
+            else:
+                stats = {
+                    "tenants_registered": len(service.bank.tenants()),
+                    "dispatches": service.bank.dispatches,
+                    "compiled_shapes": len(service.bank.compiled_shapes),
+                    "tiers": service.bank.tier_stats(),
+                }
+            stats.update({
                 "models_on_disk": len(list_models(
                     self.cfg.serving.models_dir)),
                 "cache": service.cache_stats(),
                 "admission": service.admission_stats(),
                 "counters": {**counters.snapshot("bank"),
                              **counters.snapshot("serve")},
-            }
+            })
         self._send_json(200, stats)
 
     def _metrics(self):
@@ -280,11 +298,27 @@ class ServeHandler(BaseHTTPRequestHandler):
             gauges["serve.queue_depth"] = adm["queue_depth"]
             gauges["serve.queue_depth_high_water"] = adm["queue_depth_peak"]
             gauges["serve.max_queue_depth"] = adm["max_queue_depth"]
-            if service.lock.acquire(timeout=0.25):
+            # A replica front: walk each live replica's service; one
+            # service is the same loop over one element. Gauges sum,
+            # the epoch takes the max.
+            front = getattr(service, "replicas", None)
+            if front is not None:
+                services = [front[i] for i in service.alive_indices()]
+                gauges["serve.replicas_alive"] = len(services)
+                gauges["serve.replicas_down"] = len(front) - len(services)
+            else:
+                services = [service]
+            agg: dict[str, float] = {}
+            epoch_max = 0
+            covered = 0
+            for svc in services:
+                if not svc.lock.acquire(timeout=0.25):
+                    continue
                 try:
-                    bank = service.bank
+                    bank = svc.bank
+                    epoch_max = max([epoch_max, *bank._epochs.values()])
                     tiers = bank.tier_stats()
-                    gauges.update({
+                    for k, v in {
                         "bank.tenants_registered": len(bank.tenants()),
                         "bank.tenants_resident": tiers["hbm"]["resident"],
                         "bank.shape_classes": len(bank._shards),
@@ -292,18 +326,21 @@ class ServeHandler(BaseHTTPRequestHandler):
                             len(bank.compiled_shapes),
                         "bank.dispatch_count": bank.dispatches,
                         "bank.tenants_with_filters": len(bank._filters),
-                        "bank.winner_cache_entries": len(service._cache),
+                        "bank.winner_cache_entries": len(svc._cache),
                         "bank.tier_hbm_resident": tiers["hbm"]["resident"],
                         "bank.tier_host_resident":
                             tiers["host"]["resident"],
                         "bank.prefetch_tracked_tenants":
                             tiers["prefetch"]["tracked_tenants"],
-                        "bank.model_epoch_max":
-                            max([0, *bank._epochs.values()]),
-                    })
+                    }.items():
+                        agg[k] = agg.get(k, 0) + v
+                    covered += 1
                 finally:
-                    service.lock.release()
-            else:
+                    svc.lock.release()
+            if covered:
+                gauges.update(agg)
+                gauges["bank.model_epoch_max"] = epoch_max
+            if covered < len(services):
                 gauges["metrics.partial"] = 1.0
         body = telemetry.render_prometheus(
             counters.snapshot(), telemetry.histograms, gauges,
@@ -398,30 +435,37 @@ def _make_service(cfg: OnixConfig, device: torch.device):
         except ValueError:          # traversal-shaped name
             return None
 
-    bank = ModelBank(
-        capacity=cfg.serving.bank_capacity, form=cfg.serving.bank_form,
-        loader=loader, bulk_loader=bulk_loader,
-        host_capacity=cfg.serving.host_model_cache,
-        filter_loader=filter_loader, epoch_loader=epoch_loader,
-        serve_form=cfg.serving.serve_form, device=device,
-        shard_form=cfg.serving.bank_shard,
-        prefetch_depth=cfg.serving.prefetch_depth)
-    return BankService(
-        bank, max_batch_requests=cfg.serving.max_batch_requests,
-        cache_size=cfg.serving.winner_cache_size,
-        max_queue_depth=cfg.serving.max_queue_depth,
-        request_deadline_s=cfg.serving.request_deadline_ms / 1e3)
+    def one_service() -> BankService:
+        bank = ModelBank(
+            capacity=cfg.serving.bank_capacity, form=cfg.serving.bank_form,
+            loader=loader, bulk_loader=bulk_loader,
+            host_capacity=cfg.serving.host_model_cache,
+            filter_loader=filter_loader, epoch_loader=epoch_loader,
+            serve_form=cfg.serving.serve_form,
+            degrade_form_fallback=cfg.serving.degrade_form_fallback,
+            device=device, shard_form=cfg.serving.bank_shard,
+            prefetch_depth=cfg.serving.prefetch_depth)
+        return BankService(
+            bank, max_batch_requests=cfg.serving.max_batch_requests,
+            cache_size=cfg.serving.winner_cache_size,
+            max_queue_depth=cfg.serving.max_queue_depth,
+            request_deadline_s=cfg.serving.request_deadline_ms / 1e3)
+
+    if cfg.serving.replicas > 1:
+        # N replicas behind one front, each with its own bank and winner
+        # cache on the server's one device; all read this process's
+        # model store, so each replica's disk-epoch probe works as is.
+        from onix_torch.serving.replicas import ReplicaFront
+        return ReplicaFront([one_service()
+                             for _ in range(cfg.serving.replicas)])
+    return one_service()
 
 
 def make_server(cfg: OnixConfig, port: int = DEFAULT_PORT,
                 host: str = "127.0.0.1",
                 device: str | torch.device = "cuda") -> ServeServer:
-    """The server, bound but not yet serving. Raises for
-    `serving.replicas > 1` (not ported) and, with the default device,
-    when there is no card."""
-    if cfg.serving.replicas > 1:
-        raise not_ported("serving.replicas > 1 (replicas behind a router)",
-                         "queue 1, item 12")
+    """The server, bound but not yet serving. Raises, with the default
+    device, when there is no card."""
     dev = resolve_device(device)
     from onix_torch.utils import telemetry
     telemetry.apply_config(cfg.telemetry)

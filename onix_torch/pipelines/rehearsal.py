@@ -39,7 +39,6 @@ import time
 import numpy as np
 import torch
 
-from onix_torch import not_ported
 
 JUDGED_K = 1000
 JUDGED_BAR = 0.95
@@ -121,9 +120,6 @@ def run_rehearsal(n_events: int = 100_000, n_sweeps: int = 300,
     if generator not in ("mixture", "sessions"):
         raise ValueError(f"unknown generator {generator!r}; "
                          "expected 'mixture' or 'sessions'")
-    if generator == "sessions":
-        raise not_ported("the rehearsal's generator='sessions'",
-                         "item 21 (the copy of pipelines/synth2.py)")
     if engine not in ("gibbs", "sharded"):
         raise ValueError(f"unknown engine {engine!r}")
     dev = resolve_device(device)
@@ -132,11 +128,26 @@ def run_rehearsal(n_events: int = 100_000, n_sweeps: int = 300,
         from onix_torch.parallel.mesh import make_mesh
         mesh = make_mesh(*(engine_mesh or (1, 1)), device=dev)
 
-    day, planted = SYNTH[datatype](
-        n_events=n_events, n_hosts=max(120, n_events // 250),
-        n_anomalies=max(30, n_events // 650), seed=seed)
-    n_day = len(day)
-    bundle = build_corpus(WORD_FNS[datatype](day))
+    if generator == "sessions":
+        # The independent witness: session/state-machine telemetry the
+        # model family did not generate (synth2.py). The overlap pairing
+        # is engine against oracle on the same corpus, so the bar means
+        # the same on any data.
+        from onix_torch.pipelines.scale import _words_from_cols
+        from onix_torch.pipelines.synth2 import SYNTH2_ARRAYS
+        cols = SYNTH2_ARRAYS[datatype](
+            n_events, n_hosts=max(120, n_events // 250),
+            n_anomalies=max(30, n_events // 650), seed=seed)
+        n_day = len(cols["hour"])
+        planted = cols["anomaly_idx"]
+        bundle = build_corpus(_words_from_cols(datatype, cols))
+        del cols
+    else:
+        day, planted = SYNTH[datatype](
+            n_events=n_events, n_hosts=max(120, n_events // 250),
+            n_anomalies=max(30, n_events // 650), seed=seed)
+        n_day = len(day)
+        bundle = build_corpus(WORD_FNS[datatype](day))
     corpus = bundle.corpus
     sc = corpus.to_doc_word_counts()
 

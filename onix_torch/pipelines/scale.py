@@ -25,8 +25,9 @@ score gathers and the exact bottom-k in PyTorch ops);
 trained vocabulary that does not fit the compact key returns the run to
 host words, as in the reference, and the manifest's `words_mode` says
 so. A run of several fit processes
-(`fit_hosts > 1`) raises for slice 5, the independent session generator
-(`generator="sessions"`) for item 21.
+(`fit_hosts > 1`) raises for slice 5. `generator="sessions"` takes
+the independent session generator (`synth2.py`) for the day and every
+streamed chunk.
 """
 
 from __future__ import annotations
@@ -121,10 +122,15 @@ def run_scale(n_events: int, n_hosts: int | None = None,
         raise not_ported("the host fabric's rebalance on a host's death "
                          "(rebalance=True)",
                          "slice 5 (multiple devices and hosts)")
+    # generator="sessions" swaps in the independent session/state-
+    # machine generator (synth2.py), whose generative assumptions the
+    # model family does not share. Same schema, same pipeline, same
+    # planted contract.
     if generator == "sessions":
-        raise not_ported("the scale run's generator='sessions'",
-                         "item 21 (the copy of pipelines/synth2.py)")
-    if generator != "mixture":
+        from onix_torch.pipelines.synth2 import SYNTH2_ARRAYS as gen_arrays
+    elif generator == "mixture":
+        gen_arrays = SYNTH_ARRAYS
+    else:
         # A typo'd generator silently producing MIXTURE data would
         # stamp independent-witness claims on evidence that isn't.
         raise ValueError(f"unknown generator {generator!r}; "
@@ -160,8 +166,8 @@ def run_scale(n_events: int, n_hosts: int | None = None,
             resumed_sessions = int(meta["sessions"])
 
     t = time.monotonic()
-    cols = SYNTH_ARRAYS[datatype](train_events, n_hosts=n_hosts,
-                                  n_anomalies=n_anomalies, seed=seed)
+    cols = gen_arrays[datatype](train_events, n_hosts=n_hosts,
+                                n_anomalies=n_anomalies, seed=seed)
     walls["synthesize"] = time.monotonic() - t
 
     t = time.monotonic()
@@ -236,8 +242,8 @@ def run_scale(n_events: int, n_hosts: int | None = None,
             bundle, wt.edges, theta, phi_wk, n_events=n_events,
             chunk_events=train_events, n_hosts=n_hosts, seed=seed,
             max_results=max_results, planted=planted, walls=walls,
-            datatype=datatype, info=stream_info, ckpt=ckpt,
-            save_meta=_save_meta, device=dev)
+            datatype=datatype, info=stream_info, gen_arrays=gen_arrays,
+            ckpt=ckpt, save_meta=_save_meta, device=dev)
 
     if resumed_sessions:
         # Resumed runs replay the deterministic host stages, so raw
@@ -412,7 +418,8 @@ def _stream_score(bundle, fitted_edges, theta, phi_wk, *, n_events: int,
                   chunk_events: int, n_hosts: int, seed: int,
                   max_results: int, planted: set, walls: dict,
                   datatype: str = "flow", info: dict | None = None,
-                  ckpt=None, save_meta=None, device="cuda"):
+                  gen_arrays=None, ckpt=None, save_meta=None,
+                  device="cuda"):
     """Score the FULL day in chunk_events-sized pieces against a model
     fitted on chunk 0.
 
@@ -427,6 +434,8 @@ def _stream_score(bundle, fitted_edges, theta, phi_wk, *, n_events: int,
     winners come back, so peak memory is one chunk's columns."""
     info = {} if info is None else info
     dev = resolve_device(device)
+    if gen_arrays is None:
+        gen_arrays = SYNTH_ARRAYS
     theta_x, phi_x = extend_model_for_unseen(theta, phi_wk)
     d_x, v_x = theta_x.shape[-2], phi_x.shape[-2]
     chains = theta_x.shape[0] if theta_x.ndim == 3 else 1
@@ -511,9 +520,9 @@ def _stream_score(bundle, fitted_edges, theta, phi_wk, *, n_events: int,
 
     def _synth_chunk(ci: int, mi: int) -> dict:
         t0 = time.monotonic()
-        cc = SYNTH_ARRAYS[datatype](mi, n_hosts=n_hosts,
-                                    n_anomalies=anomalies_per_chunk,
-                                    seed=seed + 1000 * ci)
+        cc = gen_arrays[datatype](mi, n_hosts=n_hosts,
+                                  n_anomalies=anomalies_per_chunk,
+                                  seed=seed + 1000 * ci)
         walls["stream_synth"] += time.monotonic() - t0
         return cc
 
@@ -671,7 +680,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--generator", choices=("mixture", "sessions"),
                     default="mixture",
                     help="telemetry generator: the role-mixture synth "
-                         "(sessions: not in the port yet)")
+                         "or the independent session/state-machine "
+                         "generator (synth2)")
     ap.add_argument("--resume-dir", default=None,
                     help="stage/chunk checkpoint dir: a run killed "
                          "mid-way resumes from the last completed stage "

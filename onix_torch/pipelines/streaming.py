@@ -757,7 +757,8 @@ class StreamingScorer:
         # hot path): word adjust + min-reduce + pair adjust + tol
         # screen + bottom-M in ONE kernel K2 launch behind
         # the serve gate (serving.serve_form / ONIX_SERVE_FORM; "auto"
-        # keeps the host tail until a measured crossover lands). The
+        # resolves by the measured table: K2 on the card, the host tail
+        # on the CPU). The
         # string-keyed fallback (no u32 pair identities under a
         # non-empty filter) stays on the host tail, which can apply
         # word-only filtering.

@@ -15,15 +15,28 @@ scores, applies the row's feedback filter, screens and selects the
 bottom M. Per-tenant winners equal the plain single-tenant
 `scoring.top_suspicious` on the same tables, bit for bit.
 
-The reference has two batched forms (`vmap`, `gather`) and two serving
-forms (`xla`, `fused`), all giving the same winners and chosen for
-speed on the TPU. With the rows gathered inside the kernel they are
-one call here: `serving.bank_form` auto|vmap|gather and
-`serving.serve_form` auto|fused all take K2; `serve_form="xla"` and
-`bank_shard="sharded"` (or more than one device) raise
-NotImplementedError naming their ROADMAP item. There is no second form
-to fall back to: a K2 failure propagates (`serve.form_fallback` and
-`fallback_dispatches` stay 0).
+Two serving forms give the same winners, order and tie rules, as in
+the reference. "fused" is K2. "xla" is the reference's XLA arm in
+PyTorch ops: every event gathers its tenant's rows from the flattened
+bank, scores with the sum `scoring.top_suspicious` runs, and filters,
+screens and selects with `scoring.select_bottom`, so it equals K2's
+plain version bit for bit. The reference's two batched xla forms (vmap
+and gather) give the same bits; the port keeps the gather form, and
+`serving.bank_form` stays a validated name: each of its values scores
+through that one form. The serve form is resolved per wave by the one
+serve gate, `fused_serve.select_serve_form(serve_form, n_pad, device)`,
+on the per-lane event count.
+
+The degradation ladder, on a CPU bank only: a wave whose K2 call fails
+re-runs through the xla form (same winners), is counted in
+`serve.form_fallback` and `fallback_dispatches`, and its answers are
+stamped `degraded`; `degrade_form_fallback=False` lets the failure
+propagate. On the card the ladder has no rung: its rung is plain
+PyTorch in place of the kernel, so a failed K2 wave propagates whatever
+the flag says. Building or loading K2's library is not a wave either: a
+bank that may take the fused form on the card loads it when it is
+constructed, and a failure raises there. `bank_shard="sharded"` and
+more than one device raise NotImplementedError naming slice 5.
 
 Residency: each shape class holds `capacity` resident slots. Admission
 stages all newly needed tenants of a wave on the host and ships ONE
@@ -49,11 +62,12 @@ from onix_torch import not_ported
 from onix_torch.config import resolve_form_gate
 from onix_torch.device import resolve_device
 from onix_torch.feedback.filter import (FILTER_FLOOR, FilterTables,
-                                        HostFilter, _pad_sorted, half_tensor,
-                                        split_key)
+                                        HostFilter, _pad_sorted, apply_filter,
+                                        half_tensor, split_key)
 from onix_torch.models import fused_serve
 from onix_torch.models.compaction import pow2_bucket
-from onix_torch.models.scoring import TopK
+from onix_torch.models.scoring import (TopK, score_events_in_order,
+                                       select_bottom)
 from onix_torch.utils import faults, telemetry
 from onix_torch.utils.obs import counters
 from onix_torch.utils.resilience import (Deadline, Overloaded, RetryPolicy,
@@ -80,25 +94,13 @@ BANK_VOCAB_FLOOR = 256
 BANK_EVENTS_FLOOR = 64
 
 
-def select_bank_form(form: str) -> str:
-    """The reference's batched-form gate (ONIX_BANK_FORM > explicit >
-    default), kept so that a typo'd form still fails loudly. Both forms
-    are one K2 call here; the name is recorded in the shape keys."""
-    return resolve_form_gate(gate="bank form", choices=("vmap", "gather"),
-                             explicit=form, env_var="ONIX_BANK_FORM",
-                             default="gather")
-
-
-def select_serve_form(form: str) -> str:
-    """The serving-scan form (ONIX_SERVE_FORM > explicit > "fused").
-    The port has K2 only: "xla" raises NotImplementedError."""
-    got = resolve_form_gate(gate="serve_form", choices=("xla", "fused"),
-                            explicit=form, env_var="ONIX_SERVE_FORM",
-                            default="fused")
-    if got == "xla":
-        raise not_ported("serving.serve_form='xla' (the three-stage "
-                         "scan)", "queue 1, item 12")
-    return got
+def check_bank_form(form: str) -> None:
+    """Validates the configured bank form (ONIX_BANK_FORM > explicit):
+    the reference's "auto" | "vmap" | "gather". The port's xla arm has
+    one form, so the name selects nothing."""
+    resolve_form_gate(gate="bank form", choices=("vmap", "gather"),
+                      explicit=form, env_var="ONIX_BANK_FORM",
+                      default="gather")
 
 
 def select_shard_form(form: str) -> str:
@@ -112,6 +114,44 @@ def select_shard_form(form: str) -> str:
         raise not_ported("serving.bank_shard='sharded'",
                          "slice 5 (multiple devices and hosts)")
     return got
+
+
+# ---------------------------------------------------------------------------
+# The xla arm: the reference's `_bank_score_gather`
+# (`onix/serving/model_bank.py:333`) in PyTorch ops. Every event scores
+# with `score_events_in_order`, the sum of the single-tenant
+# `scoring.top_suspicious`, so it and K2's plain version give the same
+# bits; a request row with no feedback rides no filter at all.
+# ---------------------------------------------------------------------------
+
+
+def _row_filter_adjust(s, doc_ids, word_ids, filt_rows: FilterTables):
+    """Each request row's filter on its [R, N] scores: word key = the
+    event's word id, pair key = the packed (doc, word) identity the
+    serve-layer feedback rows label, as (hi, lo) = (doc, word)."""
+    return apply_filter(s, (torch.zeros_like(word_ids), word_ids),
+                        (doc_ids, word_ids), filt_rows)
+
+
+def _bank_score_gather(theta_bank, phi_bank, slots, doc_ids, word_ids, mask,
+                       tol, filt_rows, *, max_results: int) -> TopK:
+    """The bank flattens to [C·D_pad, K] / [C·V_pad, K] and every event
+    gathers its rows at the tenant-composed flat index; each row's
+    filter, the tol screen and the bottom M follow. Returns TopK
+    [R, M]."""
+    c, d_pad, k = theta_bank.shape
+    v_pad = phi_bank.shape[1]
+    sl = slots.to(torch.int64)[:, None]
+    gd = sl * d_pad + doc_ids.to(torch.int64)
+    gw = sl * v_pad + word_ids.to(torch.int64)
+    s = score_events_in_order(theta_bank.reshape(c * d_pad, k),
+                              phi_bank.reshape(c * v_pad, k), gd, gw)
+    if filt_rows is not None:
+        s = _row_filter_adjust(s, doc_ids, word_ids, filt_rows)
+    tol_t = torch.tensor(tol, dtype=torch.float32, device=s.device)
+    s = torch.where((mask > 0) & (s < tol_t), s,
+                    torch.full_like(s, float("inf")))
+    return select_bottom(s, max_results)
 
 
 class BankRefusal(ValueError):
@@ -183,14 +223,18 @@ class ModelBank:
     request batch's unknown tenants in one host-side pass. A loader
     miss is a `BankRefusal`. `host_capacity` (0 = unbounded) caps how
     many loader-backed models stay in the HOST registry. `device` is
-    where the banks live and K2 runs (default the card; there is no
-    fallback); `devices` with more than one entry raises, as do
-    `serve_form` "xla" and `shard_form` "sharded"."""
+    where the banks live and every wave runs (default the card; nothing
+    picks another). `form` is the validated bank form name, which
+    selects nothing; `serve_form` is the configured serve gate, resolved
+    per wave; `degrade_form_fallback` arms the ladder on a CPU bank
+    (module docstring). `devices` with more than one entry raises, as does
+    `shard_form` "sharded"."""
 
     def __init__(self, capacity: int = 64, form: str = "auto",
                  loader=None, bulk_loader=None, host_capacity: int = 0,
                  filter_loader=None, epoch_loader=None,
                  serve_form: str = "auto",
+                 degrade_form_fallback: bool = True,
                  device: str | torch.device = "cuda", devices=None,
                  shard_form: str = "auto", prefetch_depth: int = 0):
         if capacity < 1:
@@ -202,10 +246,20 @@ class ModelBank:
         if devices is not None and len(devices) > 1:
             raise not_ported("a model bank over several devices",
                              "slice 5 (multiple devices and hosts)")
-        self.form = select_bank_form(form)
-        self.serve_form = select_serve_form(serve_form)
         self.shard_form = select_shard_form(shard_form)
         self.device = resolve_device(devices[0] if devices else device)
+        # The serve gate resolves per wave; resolving it once here makes
+        # a typo'd form (or env override) fail at construction.
+        check_bank_form(form)
+        self.form = form
+        self.serve_form = serve_form
+        may_fuse = fused_serve.select_serve_form(
+            serve_form, 1 << 62, self.device) == "fused"
+        if may_fuse and self.device.type == "cuda":
+            # Some wave may take K2: its library is built and loaded
+            # now, so a build or load failure raises here and never
+            # reaches the ladder.
+            fused_serve._library()
         self.capacity = capacity
         self._loader = loader
         self._bulk_loader = bulk_loader
@@ -231,9 +285,13 @@ class ModelBank:
         self._epochs: dict[str, int] = {}
         # Last PERSISTED model_epoch seen per tenant (add() adopt/bump).
         self._disk_epochs: dict[str, int] = {}
+        # The ladder's rung is plain PyTorch in place of K2: a CPU bank
+        # only. On the card a failed K2 wave propagates.
+        self.degrade_form_fallback = (degrade_form_fallback
+                                      and self.device.type == "cpu")
         self.dispatches = 0
-        # The reference counts fused-to-xla fallbacks here; the port
-        # has one serving form, so this stays 0.
+        # Per-BANK fallback tally: the service's degraded stamp keys on
+        # this bank's waves, never the process-global counter.
         self.fallback_dispatches = 0
         self.compiled_shapes: set[tuple] = set()
 
@@ -698,8 +756,8 @@ class ModelBank:
             m[row, :n] = 1.0
             slots[row] = shard.lru[requests[i].tenant]
             lens[row] = n
-        # A wave with no filtered tenant ships filt_rows=None: the
-        # kernel then runs no membership search.
+        # A wave with no filtered tenant ships filt_rows=None: neither
+        # form then runs a membership search.
         if any(requests[i].tenant in self._filters for i in wave):
             filt_rows = self._filter_rows(requests, wave, r_pad)
             filt_dims = tuple(int(getattr(filt_rows, f)[0].shape[1])
@@ -707,21 +765,24 @@ class ModelBank:
                                         "pair_suppress", "pair_boost"))
         else:
             filt_rows, filt_dims = None, None
-        self.compiled_shapes.add((self.form, self.serve_form, shard.d_pad,
-                                  shard.v_pad, shard.k, r_pad, n_pad,
-                                  max_results, filt_dims))
+        # The serve gate keys on n_pad, the PER-LANE event count each
+        # row of the wave runs at: the unit of every consumer's entry.
+        serve = fused_serve.select_serve_form(self.serve_form, n_pad,
+                                              self.device)
+        shape_key = (serve, shard.d_pad, shard.v_pad, shard.k,
+                     r_pad, n_pad, max_results, filt_dims)
+        self.compiled_shapes.add(shape_key)
         dev = self.device
 
         def t(a):
             return torch.from_numpy(a).to(dev)
-        with telemetry.TRACER.span("bank.score_wave", form=self.form,
-                                   serve=self.serve_form, requests=r,
+        args = (shard.theta, shard.phi, t(slots), t(d), t(w), t(m), tol,
+                filt_rows)
+        with telemetry.TRACER.span("bank.score_wave", serve=serve,
+                                   requests=r,
                                    events=sum(n_events)):
-            res = fused_serve.bank_score_fused(
-                shard.theta, shard.phi, t(slots), t(d), t(w), t(m), tol,
-                filt_rows, max_results=max_results, row_len=t(lens))
-            self.dispatches += 1
-            counters.inc("bank.dispatch")
+            res = self._launch(args, serve, shape_key, t(lens),
+                               max_results=max_results)
             counters.inc("bank.requests", r)
             counters.inc("bank.events", sum(n_events))
             scores = res.scores.cpu().numpy()     # ONE fetch per wave
@@ -729,13 +790,41 @@ class ModelBank:
         for row, i in enumerate(wave):
             out[i] = TopK(scores=scores[row], indices=indices[row])
 
+    def _launch(self, args, serve: str, shape_key: tuple, row_len, *,
+                max_results: int) -> TopK:
+        """One wave's call behind the degradation ladder. Its one rung,
+        armed on a CPU bank only: a failed K2 call (RuntimeError)
+        re-runs the wave through the xla form, which gives the same
+        winners; it is counted and stamped degraded upstream, never
+        silent. Any other error, any failure with the ladder off, and
+        every failure on the card propagates."""
+        try:
+            if serve == "fused":
+                # K2 may skip each row's padded tail; xla reads the mask.
+                res = fused_serve.bank_score_fused(
+                    *args, max_results=max_results, row_len=row_len)
+            else:
+                res = _bank_score_gather(*args, max_results=max_results)
+        except RuntimeError:
+            if serve != "fused" or not self.degrade_form_fallback:
+                raise
+            counters.inc("serve.form_fallback")
+            self.fallback_dispatches += 1
+            self.compiled_shapes.add(("xla",) + shape_key[1:])
+            res = _bank_score_gather(*args, max_results=max_results)
+        self.dispatches += 1
+        counters.inc("bank.dispatch")
+        return res
+
 
 @dataclasses.dataclass
 class BankResult:
     """One request's outcome through the service: winners + provenance.
-    `degraded` stamps a response served past the service's soft
-    overload watermark. Degraded NEVER means stale: winners are
-    current-epoch by the same cache contract as any other response."""
+    `degraded` stamps a response served under the degradation ladder:
+    past the service's soft overload watermark, or a wave that fell
+    back from K2 to the xla form. Degraded NEVER means stale: winners
+    are current-epoch by the same cache contract as any other
+    response."""
     topk: TopK
     cached: bool
     degraded: bool = False
@@ -813,7 +902,8 @@ class BankService:
              runs to completion.
 
         Served responses past the soft watermark (depth > half the
-        max) are stamped `degraded: true` (`serve.degraded`)."""
+        max), and those of a call in which a wave fell back from K2 to
+        the xla form, are stamped `degraded: true` (`serve.degraded`)."""
         t_recv = time.perf_counter()
         shed_pending = None
         with self._admit_lock:
@@ -854,6 +944,7 @@ class BankService:
                     counters.inc("serve.deadline_expired")
                     deadline.check("serve request (queued past its "
                                    "deadline budget)")
+                fb0 = self.bank.fallback_dispatches
                 # Bounded replay for the injected `serve:score` site —
                 # it fires at score() entry, before any mutation.
                 results = retry_call(
@@ -861,6 +952,7 @@ class BankService:
                                               max_results=max_results),
                     policy=_SERVE_RETRY, counter_prefix="serve.score",
                     retry_on=faults.InjectedFault)
+                fell_back = self.bank.fallback_dispatches > fb0
                 wall = time.perf_counter() - t0
             self._wall_hist.observe(wall)
             with self._admit_lock:
@@ -868,7 +960,7 @@ class BankService:
         finally:
             with self._admit_lock:
                 self._pending -= 1
-        if soft:
+        if soft or fell_back:
             counters.inc("serve.degraded")
             counters.inc("serve.degraded_requests", len(requests))
             results = [dataclasses.replace(r, degraded=True)

@@ -58,7 +58,12 @@ SERVING_MODULES = ("onix_torch.feedback.filter", "onix_torch.oa.feedback",
                    "onix_torch.models.fused_serve",
                    "onix_torch.models.compaction", "onix_torch.checkpoint",
                    "onix_torch.utils.faults", "onix_torch.utils.resilience",
-                   "onix_torch.utils.telemetry")
+                   "onix_torch.utils.telemetry",
+                   "onix_torch.serving.replicas",
+                   "onix_torch.serving.load_harness",
+                   "onix_torch.feedback.rescore",
+                   "onix_torch.ingest.watcher", "onix_torch.ingest.mpingest",
+                   "onix_torch.pipelines.synth2")
 
 
 def test_port_package_list_is_not_empty():

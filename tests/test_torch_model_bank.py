@@ -6,7 +6,11 @@ fixed order; the reference's XLA arm sums in its own order, so scores
 agree to 8·2⁻²³ relative and winners are the same events in the same
 order except at a near-tie (two events whose reference scores lie
 within twice that bound). Against the port's own single-tenant
-`scoring.top_suspicious` the bank is bit-identical.
+`scoring.top_suspicious` the bank is bit-identical, in both serving
+forms: the one xla form sums over K in K2's order too, so it equals
+K2's plain version bit for bit and is held against both of the
+reference's batched forms (vmap, gather); the degradation ladder's
+answers, on a CPU bank, are the xla arm's.
 """
 
 import threading
@@ -313,7 +317,7 @@ def test_injected_admission_fault_is_absorbed():
 
 
 @pytest.mark.parametrize("kw", [dict(shard_form="sharded"),
-                                dict(serve_form="xla"),
+                                dict(serve_form="xla", shard_form="sharded"),
                                 dict(devices=["cpu", "cpu"])])
 def test_unported_forms_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -321,13 +325,37 @@ def test_unported_forms_raise(kw):
 
 
 def test_forms_and_env_overrides(monkeypatch):
+    """The configured forms are kept; the serve form resolves per wave
+    through the gate, and every bank form name scores through the one
+    xla form. A typo fails at construction, as does an unported
+    shard."""
+    monkeypatch.delenv("ONIX_SERVE_FORM", raising=False)
+    monkeypatch.delenv("ONIX_BANK_FORM", raising=False)
+    rng = np.random.default_rng(9)
+    theta, phi = _model(rng, 50, 40)
+    req = tmb.ScoreRequest("a", rng.integers(0, 50, 100).astype(np.int32),
+                           rng.integers(0, 40, 100).astype(np.int32))
     for form in ("auto", "vmap", "gather"):
-        assert tmb.ModelBank(form=form, device="cpu").serve_form == "fused"
+        for serve_form in ("auto", "xla", "fused"):
+            b = tmb.ModelBank(form=form, serve_form=serve_form,
+                              device="cpu")
+            assert (b.form, b.serve_form) == (form, serve_form)
+            b.add("a", theta, phi)
+            b.score_batch([req], tol=TOL, max_results=M)
+            (key,) = b.compiled_shapes
+            assert key[0] == ("xla" if serve_form == "auto" else serve_form)
+    for bad in (dict(form="sideways"), dict(serve_form="fusd")):
+        with pytest.raises(ValueError, match="bank form|serve_form"):
+            tmb.ModelBank(device="cpu", **bad)
+    monkeypatch.setenv("ONIX_BANK_FORM", "sideways")
     with pytest.raises(ValueError, match="bank form"):
-        tmb.ModelBank(form="sideways", device="cpu")
-    monkeypatch.setenv("ONIX_SERVE_FORM", "xla")
-    with pytest.raises(NotImplementedError):
         tmb.ModelBank(device="cpu")
+    monkeypatch.delenv("ONIX_BANK_FORM")
+    monkeypatch.setenv("ONIX_SERVE_FORM", "xla")
+    b = tmb.ModelBank(serve_form="fused", device="cpu")
+    b.add("a", theta, phi)
+    b.score_batch([req], tol=TOL, max_results=M)
+    assert next(iter(b.compiled_shapes))[0] == "xla"
     monkeypatch.setenv("ONIX_SERVE_FORM", "fused")
     monkeypatch.setenv("ONIX_BANK_SHARD", "sharded")
     with pytest.raises(NotImplementedError):
@@ -338,3 +366,213 @@ def test_default_device_is_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         tmb.ModelBank()
+
+
+# -- the xla forms and the degradation ladder ---------------------------------
+
+
+def _wave(rng, filtered):
+    """One bank wave's arguments: 3 slots of a [4, D_pad, K] bank, 4
+    request rows of 256 padded events, optionally one filter row a
+    request (word and pair keys from the row's own events)."""
+    c, d_pad, v_pad, k, r, n = 4, 64, 32, 8, 4, 256
+    theta = rng.dirichlet(np.full(k, 0.4), (c, d_pad)).astype(np.float32)
+    phi = rng.dirichlet(np.full(k, 0.4), (c, v_pad)).astype(np.float32)
+    slots = np.array([2, 0, 2, 3], np.int32)
+    d = rng.integers(0, d_pad, (r, n)).astype(np.int32)
+    w = rng.integers(0, v_pad, (r, n)).astype(np.int32)
+    m = (rng.random((r, n)) < 0.9).astype(np.float32)
+    filts = None
+    if filtered:
+        filts = [HostFilter.empty().merged(
+            word_suppress=w[i, :2].astype(np.uint64),
+            word_boost=w[i, 5:6].astype(np.uint64),
+            pair_suppress=pack_pair(d[i, 10:14], w[i, 10:14]),
+            pair_boost=pack_pair(d[i, 20:23], w[i, 20:23]))
+            if i != 1 else None for i in range(r)]
+    return theta, phi, slots, d, w, m, filts
+
+
+def _rows(mod, filts, r):
+    """The wave's stacked filter rows through each package's bank."""
+    if filts is None:
+        return None
+    reqs = [mod.ScoreRequest(f"t{i}", np.zeros(1, np.int32),
+                             np.zeros(1, np.int32)) for i in range(r)]
+    bank = (mod.ModelBank(device="cpu") if mod is tmb
+            else mod.ModelBank())
+    for i, f in enumerate(filts):
+        if f is not None:
+            bank._filters[f"t{i}"] = f if mod is tmb else \
+                jmb.HostFilter(f.word_suppress, f.word_boost,
+                               f.pair_suppress, f.pair_boost, f.boost_scale)
+    return bank._filter_rows(reqs, list(range(r)), r)
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+def test_xla_forms_match_reference_and_each_other(filtered):
+    """The port's one xla form against both of the reference's batched
+    forms, and against K2's plain version."""
+    rng = np.random.default_rng(21 + filtered)
+    theta, phi, slots, d, w, m, filts = _wave(rng, filtered)
+    t = torch.from_numpy
+    targs = (t(theta), t(phi), t(slots), t(d), t(w), t(m), TOL,
+             _rows(tmb, filts, 4))
+    xla = tmb._bank_score_gather(*targs, max_results=M)
+    # Equal to K2's plain version on the same wave, bit for bit.
+    _assert_equal_topk(xla, fused_serve.bank_score_fused(*targs,
+                                                         max_results=M))
+    jargs = (jnp.asarray(theta), jnp.asarray(phi), jnp.asarray(slots),
+             jnp.asarray(d), jnp.asarray(w), jnp.asarray(m), TOL,
+             _rows(jmb, filts, 4))
+    for jfn in (jmb._bank_score_vmap, jmb._bank_score_gather):
+        ref = jfn(*jargs, max_results=M)
+        for row in range(4):
+            ps, pi = xla.scores[row].numpy(), xla.indices[row].numpy()
+            rs, ri = np.asarray(ref.scores[row]), np.asarray(
+                ref.indices[row])
+            fin = np.isfinite(rs)
+            assert (np.isfinite(ps) == fin).all()
+            assert (np.abs(ps[fin] - rs[fin]) <= REL * rs[fin]).all()
+            for j in np.flatnonzero(pi != ri):
+                assert abs(ps[j] - rs[j]) <= 2 * REL * rs[j], (row, j)
+
+
+@pytest.mark.parametrize("form", ["vmap", "gather"])
+def test_bank_xla_form_equals_fused_and_oracle(form):
+    rng = np.random.default_rng(31)
+    models = {t: _model(rng, d, v) for t, (d, v) in SHAPES}
+    _, treqs = _twin_requests(rng, SHAPES * 2, [300] * 10, windows=True)
+    got = {}
+    for serve_form in ("xla", "fused"):
+        bank = tmb.ModelBank(capacity=3, form=form, serve_form=serve_form,
+                             device="cpu")
+        for t, (theta, phi) in models.items():
+            bank.add(t, theta, phi)
+        bank.set_filter("a", HostFilter.empty().merged(
+            word_suppress=np.arange(5, dtype=np.uint64)))
+        got[serve_form] = bank.score_batch(treqs, tol=TOL, max_results=M)
+        assert {k[0] for k in bank.compiled_shapes} == {serve_form}
+    for req, a, b in zip(treqs, got["xla"], got["fused"]):
+        _assert_equal_topk(a, b)
+        if req.tenant != "a":
+            _assert_equal_topk(a, _oracle(*models[req.tenant], req))
+
+
+def test_fused_failure_falls_back_to_xla_same_winners(monkeypatch):
+    """The ladder drill: a failed K2 launch re-runs the wave through the
+    xla form, counted and stamped degraded, with the xla arm's answers;
+    with the ladder off the failure propagates."""
+    rng = np.random.default_rng(5)
+    theta, phi = _model(rng, 200, 150)
+    reqs = [tmb.ScoreRequest("a", rng.integers(0, 200, 400).astype(np.int32),
+                             rng.integers(0, 150, 400).astype(np.int32),
+                             window=f"w{i}") for i in range(2)]
+    ref_bank = tmb.ModelBank(capacity=4, serve_form="xla", device="cpu")
+    ref_bank.add("a", theta, phi)
+    ref = ref_bank.score_batch(reqs, tol=TOL, max_results=M)
+
+    def boom(*a, **kw):
+        raise RuntimeError("fused_serve kernel launch failed: CUDA error 700")
+
+    monkeypatch.setattr(fused_serve, "bank_score_fused", boom)
+    bank = tmb.ModelBank(capacity=4, serve_form="fused", device="cpu")
+    bank.add("a", theta, phi)
+    out = tmb.BankService(bank).submit(reqs, tol=TOL, max_results=M)
+    assert counters.get("serve.form_fallback") >= 1
+    assert bank.fallback_dispatches == 1 and bank.dispatches == 1
+    assert all(r.degraded for r in out)
+    assert counters.get("serve.degraded") == 1
+    for got, want in zip(out, ref):
+        _assert_equal_topk(got.topk, want)
+    assert any(k[0] == "xla" for k in bank.compiled_shapes)
+    strict = tmb.ModelBank(capacity=4, serve_form="fused", device="cpu",
+                           degrade_form_fallback=False)
+    strict.add("a", theta, phi)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        strict.score_batch(reqs, tol=TOL, max_results=M)
+    assert counters.get("serve.form_fallback") == 1
+
+
+def test_ladder_has_no_rung_on_the_card(monkeypatch):
+    """On the card the ladder's rung (plain PyTorch in place of K2) is
+    off whatever the flag says: a failed K2 wave propagates, uncounted
+    and unstamped."""
+    rng = np.random.default_rng(4)
+    monkeypatch.setattr(tmb, "resolve_device",
+                        lambda device: torch.device("cuda"))
+    monkeypatch.setattr(fused_serve, "_library", lambda: None)
+    bank = tmb.ModelBank(serve_form="fused", degrade_form_fallback=True)
+    assert bank.device.type == "cuda" and not bank.degrade_form_fallback
+
+    def boom(*a, **kw):
+        raise RuntimeError("fused_serve kernel launch failed: CUDA error 700")
+
+    monkeypatch.setattr(fused_serve, "bank_score_fused", boom)
+    theta, phi, slots, d, w, m, _ = _wave(rng, False)
+    t = torch.from_numpy
+    args = (t(theta), t(phi), t(slots), t(d), t(w), t(m), TOL, None)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        bank._launch(args, "fused", ("fused",), None, max_results=M)
+    assert counters.get("serve.form_fallback") == 0
+    assert bank.fallback_dispatches == 0 and not bank.compiled_shapes
+
+
+def test_ladder_hides_no_other_error(monkeypatch):
+    """Only a failed launch degrades: an argument error of the kernel's
+    wrapper is a bug and propagates."""
+    rng = np.random.default_rng(6)
+    theta, phi = _model(rng, 50, 40)
+
+    def bad_args(*a, **kw):
+        raise ValueError("doc_ids must have shape (1, 64)")
+
+    monkeypatch.setattr(fused_serve, "bank_score_fused", bad_args)
+    bank = tmb.ModelBank(serve_form="fused", device="cpu")
+    bank.add("a", theta, phi)
+    req = tmb.ScoreRequest("a", np.zeros(5, np.int32), np.zeros(5, np.int32))
+    with pytest.raises(ValueError, match="shape"):
+        bank.score_batch([req], tol=TOL, max_results=M)
+    assert counters.get("serve.form_fallback") == 0
+
+
+def test_kernel_library_failure_raises_at_construction(monkeypatch):
+    """A bank that may take K2 on the card loads its library when it is
+    built: a build or load failure raises there, never in the ladder.
+    A bank pinned to the xla form loads nothing."""
+    loads = []
+
+    def no_library():
+        loads.append(1)
+        raise RuntimeError("nvcc failed for csrc/fused_serve.cu")
+
+    monkeypatch.setattr(tmb, "resolve_device",
+                        lambda device: torch.device("cuda"))
+    monkeypatch.setattr(fused_serve, "_library", no_library)
+    monkeypatch.delenv("ONIX_SERVE_FORM", raising=False)
+    for serve_form in ("auto", "fused"):
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            tmb.ModelBank(serve_form=serve_form)
+    assert len(loads) == 2
+    bank = tmb.ModelBank(serve_form="xla")
+    assert bank.device.type == "cuda" and len(loads) == 2
+
+
+def test_bank_gate_resolves_per_wave_through_the_serve_gate(monkeypatch):
+    """The bank keys the one serve gate on each wave's per-lane event
+    count (n_pad), as the reference's `_prepare_wave` does."""
+    monkeypatch.delenv("ONIX_SERVE_FORM", raising=False)
+    monkeypatch.setitem(fused_serve._SERVE_FUSED_MIN_EVENTS, "cpu", 512)
+    rng = np.random.default_rng(7)
+    theta, phi = _model(rng, 100, 80)
+    bank = tmb.ModelBank(device="cpu")
+    bank.add("a", theta, phi)
+    for n, want in ((100, "xla"), (200, "xla"), (300, "fused")):
+        bank.compiled_shapes.clear()
+        req = tmb.ScoreRequest("a",
+                               rng.integers(0, 100, n).astype(np.int32),
+                               rng.integers(0, 80, n).astype(np.int32))
+        got = bank.score_batch([req], tol=TOL, max_results=M)
+        (key,) = bank.compiled_shapes
+        assert key[0] == want and key[5] == 1 << (n - 1).bit_length()
+        _assert_equal_topk(got[0], _oracle(theta, phi, req))

@@ -169,13 +169,10 @@ def test_rehearsal_cli_writes_every_field(have_oracle, tmp_path, capsys):
     ({"bf16_arm": True}, "bf16_arm"),
 ])
 def test_rehearsal_arms_outside_the_port_raise(kw, what):
-    if what == "generator='sessions'":
-        with pytest.raises(NotImplementedError, match=what):
-            rehearsal.run_rehearsal(n_events=100, device="cpu", **kw)
-        return
-    # The sharded engine and the bf16 arm run on one device
-    # (test_rehearsal_sharded_bf16_arm_matches_reference); on a wider
-    # mesh they still raise, before any data is built.
+    # The sharded engine, the sessions generator and the bf16 arm run on
+    # one device (test_rehearsal_sharded_bf16_arm_matches_reference,
+    # tests/test_torch_synth2.py); on a wider mesh they still raise,
+    # before any data is built.
     with pytest.raises(NotImplementedError, match="slice 5"):
         rehearsal.run_rehearsal(n_events=100, device="cpu",
                                 **dict(kw, engine="sharded",

@@ -222,7 +222,7 @@ def test_extend_model_for_unseen_matches_reference():
 
 @pytest.mark.parametrize("kw,env,what", [
     (dict(fit_hosts=2), None, "slice 5"),
-    (dict(generator="sessions"), None, "item 21"),
+    (dict(generator="sessions", fit_hosts=2), None, "slice 5"),
     (dict(), ("ONIX_DP1_FAST", "0"), "slice 5"),
     (dict(rebalance=True), None, "slice 5"),
 ])

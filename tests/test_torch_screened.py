@@ -290,8 +290,13 @@ def test_serve_form_gate_resolves_as_the_reference(monkeypatch, form, env,
     else:
         monkeypatch.setenv("ONIX_SERVE_FORM", env)
     assert pallas_serve.select_serve_form(form, 10 ** 8) == want
-    for device in ("cpu", "cuda"):
-        assert fs.select_serve_form(form, 10 ** 8, device) == want
+    assert fs.select_serve_form(form, 10 ** 8, "cpu") == want
+    # The card has a measured row the reference's backends lack: where
+    # neither the env nor the form pins an arm, the row decides.
+    row = fs._SERVE_FUSED_MIN_EVENTS["cuda"]
+    pinned = env not in (None, "auto") or form != "auto"
+    assert fs.select_serve_form(form, 10 ** 8, "cuda") == (
+        want if pinned else "fused" if 10 ** 8 >= row else "xla")
 
 
 def test_serve_form_gate_refuses_a_typo(monkeypatch):

@@ -240,12 +240,18 @@ def test_dashboard_routes_answer_501(server):
 
 
 def test_replicas_and_default_device(tmp_path, monkeypatch):
+    from onix_torch.serving.replicas import ReplicaFront
     cfg = OnixConfig()
     cfg.store.root = str(tmp_path)
     cfg.serving.replicas = 2
     cfg.validate()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        serve.make_server(cfg, port=0, device="cpu")
+    server = serve.make_server(cfg, port=0, device="cpu")
+    try:
+        front = server.bank_service(cfg)
+        assert isinstance(front, ReplicaFront) and len(front.replicas) == 2
+        assert {s.bank.device.type for s in front.replicas} == {"cpu"}
+    finally:
+        server.server_close()
     cfg.serving.replicas = 1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):

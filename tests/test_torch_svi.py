@@ -403,13 +403,32 @@ def test_reference_svi_recall_on_the_smoke_day(tmp_path):
     Store(tmp_path).write("flow", "2016-07-08", table)
     cfg = jcfg.load_config(None, [f"store.root={tmp_path}"])
     cfg.pipeline.date, cfg.pipeline.datatype = "2016-07-08", "flow"
-    assert jrun.run_scoring(cfg, engine="svi") == 0
+    # The E-step's while_loop carries its iteration count last; a
+    # callback reads it after each (jitted) loop, in batch order.
+    iters: list[int] = []
+    real_while = jax.lax.while_loop
+
+    def counted_while(cond, body, init):
+        out = real_while(cond, body, init)
+        jax.debug.callback(lambda i: iters.append(int(i)), out[-1],
+                           ordered=True)
+        return out
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(jax.lax, "while_loop", counted_while)
+        assert jrun.run_scoring(cfg, engine="svi") == 0
+    jax.effects_barrier()
     out = tmp_path / "results" / "20160708"
     res = pd.read_csv(out / "flow_results.csv")
     man = json.loads((out / "flow_results.manifest.json").read_text())
     recall = len(set(res["event_idx"]) & set(planted.tolist())) / len(
         planted)
-    print(json.dumps({"recall": recall, "epochs": len(man["ll_history"]),
+    epochs = len(man["ll_history"])
+    per_epoch = len(iters) // epochs
+    assert per_epoch * epochs == len(iters)
+    print(json.dumps({"recall": recall, "epochs": epochs,
+                      "estep_iters": [iters[e * per_epoch:(e + 1) * per_epoch]
+                                      for e in range(epochs)],
                       "ll_history": man["ll_history"],
                       "wall_seconds": man["wall_seconds"]}))
     assert recall >= 0.5
