@@ -166,6 +166,38 @@ non-zero and prints no result line):
              and 2^6 ... 2^14 events a row, three passes each; the
              gate's "cuda" row must be each sweep's crossover within one
              power of two. Every phase leaves serve.form_fallback at 0.
+13. lifecycle — (a) K1's lane form (ids and mask one row a lane) at the
+             fleet week's two classes (100 lanes x 2,048, K 10, V 128
+             and 256, D 256, ragged lanes) and 3 lanes at K 7: one call
+             equal to its plain version and to one-lane calls, exactly;
+             times, plain times, the bound summed over the lanes. (b)
+             `run_fleet` at scripts/exp_fleet.py's defaults (200
+             tenants, 7 days, 600 events, K 10, 8 sweeps, M 60, seed 3,
+             plants of 8 on days 1 and 7, t0100 poisoned on day 4): 1,399
+             ok tenant-days, the victim reparented, the plant bars; K1
+             launches = sweeps x blocks over the manifest's class
+             refits, K2 launches = the ok tenant-days; a class refit's
+             wall by part. (c) the fleet arm against the sequential arm
+             at 25 tenants for 2 days: identical ledger bodies and
+             lineage, K1 calls a class the fleet's times its lanes. (d)
+             `run_daily` at scripts/exp_daily.py's defaults (7 days,
+             60,000 events, flow and dns, 24 sweeps cold and 12 warm, K
+             20, M 200, seed 0, plants of 60 on days 1 and 7, drift_max
+             0.5, a day-4 dismissal) as the cold control and the warm
+             arm: every day ok, warm on days 2-7, plant parity, the
+             dismissed event gone on the days it recurred; the fit-wall
+             ratio; then `python -m onix_torch.pipelines.daily --device
+             cuda` at tests/test_daily.py's week under its chaos plan,
+             killed with SIGKILL once day 1 is in its ledger and
+             restarted: ledger bodies equal an uninterrupted run's. (e)
+             `run_campaign` over flow, dns and proxy (40,000 events, 20
+             sweeps, K 20, M 200, seed 0, dp 1): the overlapped and
+             sequential arms and the chaos plan's resume give identical
+             winners, the stage-sum identity holds. (f)
+             `OnlineUpdater.nudge_and_save` on phase 5's model: epoch
+             up by one, the dismissed pair's score up, the tables and
+             the window's scores equal a CPU nudge's within the SVI
+             rtol, a live bank serves the new epoch uncached.
 
 The last lines of standard output are the card's name and power limit,
 a `{"kernels": [...]}` line, and `{"ok": true, "device": {...}}`.
@@ -3682,6 +3714,825 @@ def phase_gate(card: str) -> int:
     return got
 
 
+# -- phase 13 ----------------------------------------------------------------
+
+# K1's lane form: (label, lanes, B, K, V, D). The fleet week's two shape
+# classes (docs/FLEET_r20_cpu.json week.padding: 100 lanes each of
+# D_pad 256, V_pad 128 or 256 and one block of N_pad 2,048) at the
+# week's K 10, each lane with its own ragged length; and an odd case of
+# 3 lanes at K 7 with lanes of different lengths.
+K1_LANE_SHAPES = [
+    ("fleet class V 128", 100, 2048, 10, 128, 256),
+    ("fleet class V 256", 100, 2048, 10, 256, 256),
+    ("odd lanes", 3, 1000, 7, 300, 500),
+]
+# The fleet week at scripts/exp_fleet.py's defaults.
+FLEET_WEEK = dict(days=7, tenants=200, n_events=600, n_sweeps=8,
+                  n_topics=10, max_results=60, seed=3, plant=8,
+                  poison_day=4)
+FLEET_ARMS = dict(days=2, tenants=25)
+# The daily week at scripts/exp_daily.py's defaults.
+DAILY_WEEK = dict(days=7, n_events=60_000, datatypes=("flow", "dns"),
+                  n_sweeps=24, n_topics=20, max_results=200, seed=0,
+                  plant=60, dismiss_day=4, drift_max=0.5)
+# The kill -9 drill: tests/test_daily.py's WEEK under its chaos plan.
+DRILL_WEEK = ["--days", "7", "--events", "2000", "--sweeps", "4",
+              "--topics", "10", "--max-results", "60", "--seed", "7",
+              "--plants", "1:20,7:20"]
+DRILL_CHAOS = ("daily:day@2=raise,daily:refit@2=raise,"
+               "daily:ledger@3=raise,daily:ledger@5=torn,"
+               "campaign:prepare@4=raise,fit:sweep@2=preempt,"
+               "ckpt:save@1=torn")
+# The campaign at scripts/exp_campaign.py's shape, cut to 40,000 events
+# and dp 1.
+CAMPAIGN = dict(n_events=40_000, n_sweeps=20, n_topics=20,
+                max_results=200, seed=0, dp=1)
+CAMPAIGN_CHAOS = "campaign:prepare@2=raise,fit:sweep@2=preempt,ckpt:save@1=torn"
+# The SVI tolerance of the port (ROADMAP F9): torch and JAX digamma
+# differ by up to 1.6e-5, so SVI tables are held to rtol 1e-4.
+SVI_RTOL = 1e-4
+
+
+def k1_lane_inputs(t: int, b: int, k: int, v: int, d: int,
+                   use_gumbel: bool, seed: int):
+    """K1 lane-form inputs on the card: each lane its own ids, ragged
+    length (the rest padding: mask 0, topic K) and counts, the exact
+    counts of its own tokens' topics, as a fleet lane holds them. Ids,
+    mask and topics are [t, 3, b] (the call takes the strided views
+    [:, 1], as the refit takes docs[:, i]); noise [t, b, k]."""
+    import torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    dev = "cuda"
+
+    def ints(hi, shape):
+        return torch.randint(0, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    docs, words, z_all = ints(d, (t, 3, b)), ints(v, (t, 3, b)), \
+        ints(k, (t, 3, b))
+    if t <= 3:
+        lengths = [b * (i + 1) // t - 37 * i for i in range(t)]
+    else:
+        lengths = (b // 2 + torch.randint(0, b // 2 + 1, (t,),
+                                          generator=g, device=dev)).tolist()
+    mask = torch.zeros((t, 3, b), device=dev)
+    for i, n in enumerate(lengths):
+        mask[i, :, :n] = 1.0
+    pad = mask == 0
+    z_all[pad] = k
+    docs[pad] = 0
+    words[pad] = 0
+    n_dk = torch.zeros((t, d, k), dtype=torch.int32, device=dev)
+    n_wk = torch.zeros((t, v, k), dtype=torch.int32, device=dev)
+    for i in range(t):
+        real = mask[i, 1] > 0
+        zr = z_all[i, 1][real].long()
+        one = torch.ones_like(zr, dtype=torch.int32)
+        n_dk[i].view(-1).index_add_(0, docs[i, 1][real].long() * k + zr, one)
+        n_wk[i].view(-1).index_add_(0, words[i, 1][real].long() * k + zr,
+                                    one)
+    n_k = n_wk.sum(dim=1, dtype=torch.int32)
+    noise = torch.stack([k1_noise(g, b, k, use_gumbel) for _ in range(t)])
+    return n_dk, n_wk, n_k, z_all, noise, docs, words, mask, lengths
+
+
+def phase_lane_step(card: str) -> dict:
+    """(a) K1's lane form: one call steps every lane, each with its own
+    ids and mask (the strided views [:, 1] of [T, 3, B] stacks). From
+    one snapshot it must equal its plain version exactly in z, n_dk,
+    n_wk and n_k, leave the other rows of z alone, and give each lane
+    what a one-lane call on that lane's slices gives. Times the call
+    (CUDA events, median of 30) and the plain version, with the bound
+    summed over the lanes. Returns the first fleet class's Gumbel
+    figures for K1's `lanes` entry."""
+    import itertools
+
+    import torch
+
+    from onix_torch.models import sample_count as sc
+    out = {}
+    for si, (label, t, b, k, v, d) in enumerate(K1_LANE_SHAPES):
+        for use_gumbel in (True, False):
+            sampler = "gumbel" if use_gumbel else "race"
+            (n_dk, n_wk, n_k, z_all, noise, docs, words, mask,
+             lengths) = k1_lane_inputs(t, b, k, v, d, use_gumbel,
+                                       seed=131 + si)
+            kw = dict(alpha=ALPHA, eta=ETA, v_eta=v * ETA,
+                      use_gumbel=use_gumbel)
+            snap = (n_dk, n_wk, n_k, z_all)
+
+            def fresh():
+                return [x.clone() for x in snap]
+
+            def step(st, fn=sc.gibbs_block_step_, g=noise):
+                fn(st[0], st[1], st[2], st[3][:, 1], g, docs[:, 1],
+                   words[:, 1], mask[:, 1], **kw)
+            want = fresh()
+            step(want, sc.gibbs_block_step_plain)
+            got = fresh()
+            before = sc.launches
+            step(got)
+            torch.cuda.synchronize()
+            if sc.launches - before != 1:
+                raise AssertionError(f"K1 lanes {label}/{sampler}: "
+                                     f"{sc.launches - before} calls, not 1")
+            for name, a, e in zip(("n_dk", "n_wk", "n_k", "z"), got, want):
+                if not torch.equal(a, e):
+                    bad = int((a != e).sum())
+                    raise AssertionError(
+                        f"K1 lanes {label}/{sampler}: {name} differs "
+                        f"from the plain step at {bad} places")
+            if not torch.equal(got[3][:, [0, 2]], z_all[:, [0, 2]]):
+                raise AssertionError(f"K1 lanes {label}/{sampler}: the "
+                                     "call wrote outside z[:, 1]")
+            for i in range(t):
+                one = [snap[0][i].clone(), snap[1][i].clone(),
+                       snap[2][i].clone(), snap[3][i, 1].clone()]
+                sc.gibbs_block_step_(one[0], one[1], one[2], one[3],
+                                     noise[i].contiguous(),
+                                     docs[i, 1].contiguous(),
+                                     words[i, 1].contiguous(),
+                                     mask[i, 1].contiguous(), **kw)
+                torch.cuda.synchronize()
+                for name, a, e in zip(("n_dk", "n_wk", "n_k", "z"), one,
+                                      (got[0][i], got[1][i], got[2][i],
+                                       got[3][i, 1])):
+                    if not torch.equal(a, e):
+                        raise AssertionError(
+                            f"K1 lanes {label}/{sampler}: lane {i} "
+                            f"{name} differs from a one-lane call")
+            n_moved = int(((want[3][:, 1] != z_all[:, 1])
+                           & (mask[:, 1] > 0)).sum())
+            err = max(float((a.double() - e.double()).abs().max())
+                      for a, e in zip(got, want))
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(141 + si)
+            draws = itertools.cycle([
+                torch.stack([k1_noise(gen, b, k, use_gumbel)
+                             for _ in range(t)]) for _ in range(4)])
+            work, plain_work = fresh(), fresh()
+            ms = event_ms(lambda: step(work, g=next(draws)))
+            plain_ms = event_ms(lambda: step(
+                plain_work, sc.gibbs_block_step_plain, next(draws)),
+                reps=10)
+            parts = profiled_ms(lambda: step(work, g=next(draws)))
+            nbytes = ops = 0
+            for i in range(t):
+                _, _, nb_i, ops_i = step_bound(
+                    docs[i, 1], words[i, 1], z_all[i, 1], want[3][i, 1],
+                    mask[i, 1], k, use_gumbel)
+                nbytes += nb_i
+                ops += ops_i
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / F32_OPS_PER_S * 1e3
+            bound_ms = max(t_bytes, t_ops)
+            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            say(card, f"K1 lanes {label} T={t} B={b} K={k} V={v} D={d} "
+                      f"real tokens {min(lengths)}..{max(lengths)} "
+                      f"{sampler}: one call, z, n_dk, n_wk, n_k equal to "
+                      f"plain and to {t} one-lane calls ({n_moved} tokens "
+                      f"moved); call {ms:.5f} ms, plain {plain_ms:.5f} ms "
+                      f"(CUDA events, median); profiler: "
+                      f"{_fmt(parts) or 'no device time'}; bound "
+                      f"{bound_ms:.5f} ms by {bound_by} ({nbytes} B, "
+                      f"{ops} ops)")
+            if parts and len(parts) != 2:
+                raise AssertionError(f"K1 lanes {label}/{sampler}: the "
+                                     f"call ran {sorted(parts)}, not the "
+                                     "sample and apply kernels alone")
+            if si == 0 and use_gumbel:
+                out = {"lanes": t, "B": b, "K": k, "V": v, "D": d,
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "max_abs_err": err,
+                       "library_ms": None}
+    return out
+
+
+def plant_hits(manifest: dict, day: int) -> dict:
+    rec = manifest["days"][day - 1]
+    return {t: b["winners"]["planted_in_bottom_k"]
+            for t, b in rec["tenants"].items() if b.get("status") == "ok"}
+
+
+def fleet_identity(manifest: dict) -> list:
+    """A fleet run's per-day tenant ledger bodies without the walls and
+    resume flags: what must be identical across arms."""
+    return [{"day": rec["day"],
+             "tenants": {t: {k: v for k, v in b.items()
+                             if k not in ("timing", "resumed")}
+                         for t, b in rec["tenants"].items()}}
+            for rec in manifest["days"]]
+
+
+def k1_calls(dispatches: list) -> int:
+    """The K1 calls a fleet run's class refits make: sweeps x blocks
+    per pass, once per class (fleet arm) or once per lane (sequential
+    arm)."""
+    return sum(dp["sweeps"] * dp["blocks"]
+               * (1 if dp["batched"] else dp["lanes"])
+               for dp in dispatches)
+
+
+def phase_fleet(card: str, root: pathlib.Path,
+                week: dict = FLEET_WEEK, arms: dict = FLEET_ARMS) -> int:
+    """(b) The fleet week at scripts/exp_fleet.py's defaults, with its
+    bars; K1's launches equal sweeps x blocks summed over the week's
+    class refits (the manifest's `dispatches`), K2's the ok tenant-days'
+    selections. (c) The fleet arm against the sequential arm at
+    `arms`' tenants and days: identical ledger bodies and lineage, and
+    the sequential arm's K1 calls the fleet arm's times each class's
+    lanes. Returns (the week's K1 launches, K1 and K2 launches of the
+    whole phase)."""
+    import torch
+
+    from onix_torch.models import fused_serve, sample_count
+    from onix_torch.pipelines.fleet import (run_fleet, tenant_lineage,
+                                            tenant_name)
+    from onix_torch.utils.obs import counters
+    days, n_t = week["days"], week["tenants"]
+    plants = {1: week["plant"], days: week["plant"]}
+    kw = dict(n_events=week["n_events"], n_sweeps=week["n_sweeps"],
+              n_topics=week["n_topics"], max_results=week["max_results"],
+              seed=week["seed"])
+    victim = tenant_name(n_t // 2)
+    torch.cuda.synchronize()
+    sample_count.launches = fused_serve.launches = 0
+    t0 = time.perf_counter()
+    m = run_fleet(days, n_t, root / "fleet_week", plants=plants,
+                  poison_feed={(victim, week["poison_day"])}, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = sample_count.launches, fused_serve.launches
+    agg = m["aggregate"]
+    if agg["failed_tenant_days"] != 1 \
+            or agg["ok_tenant_days"] != days * n_t - 1:
+        raise AssertionError(f"fleet week: {agg}")
+    lin = tenant_lineage(m, victim)
+    ok_days = [r["day"] for r in lin]
+    pd_ = week["poison_day"]
+    after = ok_days.index(pd_ + 1)
+    if pd_ in ok_days or lin[after]["parent_digest"] \
+            != lin[after - 1]["content_sha256"]:
+        raise AssertionError(f"fleet week: {victim} not reparented over "
+                             f"day {pd_}: {ok_days}")
+    cold, warm = plant_hits(m, 1), plant_hits(m, days)
+    lost = [(t, hc, warm[t]) for t, hc in cold.items()
+            if warm[t] < hc - max(2, round(0.5 * max(hc, 1)))
+            or (hc > 0 and warm[t] == 0)]
+    if lost:
+        raise AssertionError(f"fleet week: warm chains lost plants: "
+                             f"{lost[:5]}")
+    mean_cold = sum(cold.values()) / len(cold)
+    mean_warm = sum(warm.values()) / len(warm)
+    if mean_warm < 0.8 * mean_cold:
+        raise AssertionError(f"fleet week: mean warm {mean_warm} < 0.8 x "
+                             f"cold {mean_cold}")
+    check_launches("fleet week K1", k1, k1_calls(m["dispatches"]))
+    check_launches("fleet week K2", k2, agg["ok_tenant_days"])
+    say(card, f"fleet week: {n_t} tenants x {days} days, {kw['n_events']} "
+              f"events, K {kw['n_topics']}, {kw['n_sweeps']} sweeps: "
+              f"{agg['ok_tenant_days']} ok tenant-days, 1 failed "
+              f"({victim} day {pd_}, reparented: {ok_days}); plants day 1 "
+              f"mean {mean_cold:.2f}, day {days} warm mean "
+              f"{mean_warm:.2f}, no tenant below its bar; classes "
+              f"{json.dumps(m['padding']['class_shapes'])}; K1 launches "
+              f"{k1} ({len(m['dispatches'])} class refits), K2 launches "
+              f"{k2}; wall {wall:.2f} s, fit wall {agg['fit_wall_s']} s; "
+              f"refit span {telemetry_span_s('fleet.refit'):.2f} s, day "
+              f"span {telemetry_span_s('fleet.day'):.2f} s")
+    n_a, d_a = arms["tenants"], arms["days"]
+    got = {}
+    fused_serve.launches = 0
+    for batched in (True, False):
+        for ns in ("fleet", "campaign", "daily", "faults", "ckpt"):
+            counters.reset(ns)
+        torch.cuda.synchronize()
+        sample_count.launches = 0
+        t0 = time.perf_counter()
+        got[batched] = (run_fleet(d_a, n_a, root / f"fleet_arm_{batched}",
+                                  plants={1: week["plant"]},
+                                  batched=batched, **kw),
+                        sample_count.launches, time.perf_counter() - t0)
+    (mf, k1f, wf), (ms, k1s, ws) = got[True], got[False]
+    if fleet_identity(mf) != fleet_identity(ms):
+        raise AssertionError("fleet arm and sequential arm differ")
+    for u in range(n_a):
+        if tenant_lineage(mf, tenant_name(u)) \
+                != tenant_lineage(ms, tenant_name(u)):
+            raise AssertionError(f"lineage of {tenant_name(u)} differs "
+                                 "between the arms")
+    for a, b in zip(mf["dispatches"], ms["dispatches"]):
+        if (a["class"], a["lanes"], a["sweeps"]) \
+                != (b["class"], b["lanes"], b["sweeps"]):
+            raise AssertionError(f"the arms refit other classes: {a} {b}")
+    check_launches("fleet arm K1", k1f, k1_calls(mf["dispatches"]))
+    fleet_refit_breakdown(card)
+    check_launches("sequential arm K1", k1s, k1_calls(ms["dispatches"]))
+    say(card, f"fleet arms: {n_a} tenants x {d_a} days: ledger bodies and "
+              f"lineage identical; K1 calls fleet {k1f}, sequential "
+              f"{k1s} (each class refit's lanes x the fleet's); fit wall "
+              f"fleet {mf['aggregate']['fit_wall_s']} s, sequential "
+              f"{ms['aggregate']['fit_wall_s']} s; run wall {wf:.2f} s, "
+              f"{ws:.2f} s")
+    return k1, k1 + k1f + k1s, k2 + fused_serve.launches
+
+
+def fleet_refit_breakdown(card: str, lanes: int = 100, n_tokens: int = 1200,
+                          n_docs: int = 200, n_vocab: int = 120,
+                          k: int = 10, sweeps: int = 8,
+                          device: str = "cuda") -> None:
+    """Where a fleet class refit's wall goes: one cold refit of `lanes`
+    random tenants of the week's first class (D_pad 256, V_pad 128, one
+    block of 2,048) against its parts timed alone — the count build,
+    the lanes' noise draws for every sweep, K1's calls, and the
+    lane-by-lane estimates and ll. Host clock around work that ends in
+    a synchronize; the median of 5."""
+    import numpy as np
+    import torch
+
+    from onix_torch.config import LDAConfig
+    from onix_torch.convert import fleet_class_from_numpy
+    from onix_torch.models import fleet_gibbs as fg
+    from onix_torch.models import sample_count
+    rng = np.random.default_rng(7)
+    def ids(hi):
+        return rng.integers(0, hi, n_tokens).astype(np.int32)
+    tds = [fg.TenantDay(name=f"t{u}", uid=u, docs=ids(n_docs),
+                        words=ids(n_vocab), n_docs=n_docs, n_vocab=n_vocab)
+           for u in range(lanes)]
+    (sc,) = fg.stack_tenants(tds, k_topics=k, seed=1, day=1)
+    a = fleet_class_from_numpy(sc, device)
+    d_pad, v_pad, _ = sc.key
+    cfg = LDAConfig(n_topics=k, n_sweeps=sweeps, burn_in=sweeps // 2)
+    b = int(a["docs"].shape[2])
+
+    def wall(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) * 1e3
+
+    def refit():
+        fg.refit_lanes(cfg, a["z0"], a["docs"], a["words"], a["mask"],
+                       a["fb_docs"], a["fb_words"], a["fb_weights"],
+                       fg.LaneNoise(a["keys"], device), n_docs=d_pad,
+                       n_vocab=v_pad, use_gumbel=True)
+    counts = fg.lane_counts(a["z0"], a["docs"], a["words"], d_pad, v_pad, k)
+    noise = fg.LaneNoise(a["keys"], device)
+    draws = [noise.block(b, k, True) for _ in range(2)]
+    before = sample_count.launches
+    ms_all = wall(refit)
+    k1_per = (sample_count.launches - before) // 5
+    ms_counts = wall(lambda: fg.lane_counts(a["z0"], a["docs"], a["words"],
+                                            d_pad, v_pad, k))
+    ms_noise = wall(lambda: [noise.block(b, k, True)
+                             for _ in range(sweeps)])
+    st = [x.clone() for x in counts] + [a["z0"].clone()]
+    kw = dict(alpha=cfg.alpha, eta=cfg.eta, v_eta=v_pad * cfg.eta,
+              use_gumbel=True)
+    ms_k1 = wall(lambda: [sample_count.gibbs_block_step_(
+        st[0], st[1], st[2], st[3][:, 0], draws[i % 2], a["docs"][:, 0],
+        a["words"][:, 0], a["mask"][:, 0], **kw) for i in range(sweeps)])
+    ndk_f, nwk_f = counts[0].float(), counts[1].float()
+    ms_est = wall(lambda: fg._lanes_estimates_ll(
+        ndk_f, nwk_f, a["docs"], a["words"], a["mask"], alpha=cfg.alpha,
+        eta=cfg.eta))
+    say(card, f"fleet class refit breakdown ({lanes} lanes, {sweeps} cold "
+              f"sweeps, {k1_per} K1 calls; host clock, median of 5): "
+              f"refit {ms_all:.2f} ms = count build {ms_counts:.2f} + "
+              f"noise draws {ms_noise:.2f} ({sweeps} x {lanes} lanes) + K1 "
+              f"calls {ms_k1:.2f} + estimates and ll, twice "
+              f"{2 * ms_est:.2f} (lane by lane) + the rest")
+
+
+def telemetry_span_s(name: str) -> float:
+    """Seconds summed over the spans `name` in the telemetry
+    histograms."""
+    from onix_torch.utils import telemetry
+    h = telemetry.histograms.get(f"span.{name}")
+    return 0.0 if h is None else float(h.snapshot().get("sum", 0.0))
+
+
+def daily_walls(manifest: dict) -> dict:
+    return {rec["day"]: sum(w["fit"] for w in
+                            rec["timing"]["stage_walls_s"].values())
+            for rec in manifest["days"] if rec.get("status") == "ok"}
+
+
+def daily_fit_breakdown(card: str, root: pathlib.Path, week: dict) -> None:
+    """Where a daily fit's wall goes, cold against warm, on the warm
+    arm's day-2 flow feed (day 1's edges, day 1's model as the prior):
+    the fit's own walls (`ShardedGibbsLDA.fit`: layout, init, sweeps,
+    estimates) at the week's cold budget and at its warm one from the
+    φ̂ prior, with the warm arm's host steps around the fit (mapping the
+    prior, the drift check). Host clock, each fit ending in a copy to
+    the host."""
+    import dataclasses
+
+    from onix_torch import checkpoint
+    from onix_torch.config import LDAConfig
+    from onix_torch.parallel.mesh import make_mesh
+    from onix_torch.parallel.sharded_gibbs import ShardedGibbsLDA
+    from onix_torch.pipelines.campaign import (_prepare, map_phi_prior,
+                                               phi_topic_drift,
+                                               vocab_word_keys)
+    from onix_torch.pipelines.daily import _load_edges
+    from onix_torch.pipelines.synth import SYNTH_ARRAYS
+    arm = root / "daily_warm"
+    n = week["n_events"]
+    prep = _prepare("flow", n, max(120, min(200_000, n // 500)), 0,
+                    week["seed"], SYNTH_ARRAYS,
+                    edges=_load_edges(arm, ("flow",))["flow"])
+    prior = checkpoint.load_model(arm / "models", "flow/day-001")
+    keys = vocab_word_keys(prep.bundle)
+    t0 = time.perf_counter()
+    init_phi, _ = map_phi_prior(keys, prior.arrays["phi_wk"],
+                                prior.arrays["word_key"])
+    map_s = time.perf_counter() - t0
+    s = week["n_sweeps"]
+    cfg = LDAConfig(n_topics=week["n_topics"], n_sweeps=s,
+                    burn_in=max(1, s // 2), block_size=1 << 17,
+                    seed=week["seed"])
+    wcfg = dataclasses.replace(cfg, n_sweeps=max(2, s // 2), burn_in=1)
+    mesh = make_mesh(1, 1)
+    corpus = prep.bundle.corpus
+    walls = {}
+    for name, c, phi in (("cold", cfg, None), ("warm", wcfg, init_phi)):
+        t0 = time.perf_counter()
+        fit = ShardedGibbsLDA(c, corpus.n_vocab, mesh=mesh).fit(
+            corpus, init_phi=phi)
+        walls[name] = dict(fit["walls"], total=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phi_topic_drift(fit["phi_wk"], keys, prior.arrays["phi_wk"],
+                    prior.arrays["word_key"])
+    drift_s = time.perf_counter() - t0
+
+    def fmt(w):
+        return ", ".join(f"{k} {v * 1e3:.1f}" for k, v in w.items())
+    say(card, f"daily fit breakdown, day-2 flow feed ({corpus.n_tokens} "
+              f"tokens; ms, host clock): cold {cfg.n_sweeps} sweeps: "
+              f"{fmt(walls['cold'])}; warm {wcfg.n_sweeps} sweeps: "
+              f"{fmt(walls['warm'])}; around the warm fit: prior map "
+              f"{map_s * 1e3:.1f}, drift check {drift_s * 1e3:.1f}")
+
+
+def phase_daily(card: str, root: pathlib.Path, week: dict = DAILY_WEEK,
+                device: str = "cuda") -> tuple:
+    """(d) The daily week at scripts/exp_daily.py's defaults as the
+    cold control and the warm arm, with the experiment's bars and one
+    K2 launch a datatype-day; then the kill -9 drill through `python -m
+    onix_torch.pipelines.daily --device <device>` under the chaos plan,
+    killed once day 1 is in its ledger and restarted: its ledger bodies
+    equal an uninterrupted run's. Returns the arms' (K1, K2) launches;
+    the drill's run in another process and are not counted."""
+    import os
+    import signal
+
+    import pandas as pd
+    import torch
+
+    from onix_torch.config import DailyConfig
+    from onix_torch.models import fused_serve, sample_count
+    from onix_torch.pipelines.daily import DayLedger, run_daily
+    from onix_torch.utils import faults
+    from onix_torch.utils.obs import counters
+    days, dts = week["days"], week["datatypes"]
+    kw = dict(n_events=week["n_events"], datatypes=dts,
+              n_sweeps=week["n_sweeps"], n_topics=week["n_topics"],
+              max_results=week["max_results"], seed=week["seed"],
+              plants={1: week["plant"], days: week["plant"]},
+              collect_winner_pairs=True)
+
+    def arm(name, daily, feedback=None):
+        for ns in ("daily", "campaign", "faults", "ckpt"):
+            counters.reset(ns)
+        torch.cuda.synchronize()
+        sample_count.launches = fused_serve.launches = 0
+        t0 = time.perf_counter()
+        m = run_daily(days, root / f"daily_{name}", daily=daily,
+                      feedback=feedback, **kw)
+        torch.cuda.synchronize()
+        if m["aggregate"]["ok_days"] != days:
+            raise AssertionError(f"daily {name}: {m['aggregate']}")
+        check_launches(f"daily {name} K2", fused_serve.launches,
+                       days * len(dts))
+        return m, sample_count.launches, time.perf_counter() - t0
+    cold, k1_cold, w_cold = arm("cold", DailyConfig(force_cold=True,
+                                                    day_seed_stride=0))
+    d_day = week["dismiss_day"]
+    dismiss_dt = dismissed = None
+    for dt in dts:
+        nxt = set(cold["days"][d_day]["winners"][dt]["indices"])
+        for wp in cold["days"][d_day - 1]["winners"][dt]["winner_pairs"]:
+            if wp["event"] in nxt:
+                dismiss_dt, dismissed = dt, wp
+                break
+        if dismissed:
+            break
+    if dismissed is None:
+        raise AssertionError("daily: no recurring day-4 winner to dismiss")
+    recurred = [d for d in range(d_day + 1, days) if dismissed["event"]
+                in cold["days"][d - 1]["winners"][dismiss_dt]["indices"]]
+    fb = pd.DataFrame([{"ip": ip, "word": word}
+                       for ip, word in dismissed["pairs"]])
+    warm, k1_warm, w_warm = arm(
+        "warm", DailyConfig(drift_max=week["drift_max"],
+                            day_seed_stride=0), feedback={d_day + 1: fb})
+    cw, ww = daily_walls(cold), daily_walls(warm)
+    cold_tail = sum(cw[d] for d in range(2, days + 1))
+    warm_tail = sum(ww[d] for d in range(2, days + 1))
+    forms = {d: {dt: warm["days"][d - 1]["refit"][dt]["form"]
+                 for dt in dts} for d in range(2, days + 1)}
+    if any(f != "warm" for v in forms.values() for f in v.values()):
+        raise AssertionError(f"daily: warm arm fell back: {forms}")
+    parity = {}
+    for day in (1, days):
+        for dt in dts:
+            hc = cold["days"][day - 1]["winners"][dt]["planted_in_bottom_k"]
+            hw = warm["days"][day - 1]["winners"][dt]["planted_in_bottom_k"]
+            parity[f"{day}/{dt}"] = (hc, hw)
+            if hw < hc - max(2, round(0.15 * max(hc, 1))) or hw == 0:
+                raise AssertionError(f"daily day {day} {dt}: warm lost "
+                                     f"the plant ({hw} vs {hc})")
+    if not recurred:
+        raise AssertionError("daily: the control lost the dismissed "
+                             "winner on its own")
+    for d in recurred:
+        if dismissed["event"] in \
+                warm["days"][d - 1]["winners"][dismiss_dt]["indices"]:
+            raise AssertionError(f"daily: dismissed event back on day {d}")
+    say(card, f"daily week: {days} days x {week['n_events']} events "
+              f"{'+'.join(dts)}, cold {week['n_sweeps']} sweeps, warm "
+              f"{warm['days'][1]['refit'][dts[0]]['warm_sweeps']}: every "
+              f"day ok, warm on days 2-{days}; plants (cold, warm) "
+              f"{json.dumps(parity)}; {dismiss_dt} event "
+              f"{dismissed['event']} dismissed on day {d_day}, absent from "
+              f"the warm winners on days {recurred}; fit walls days 2-"
+              f"{days}: cold {cold_tail:.3f} s, warm {warm_tail:.3f} s, "
+              f"cold/warm {cold_tail / max(warm_tail, 1e-9):.3f} (the "
+              f"reference's CPU record: 1.584); K1 launches cold "
+              f"{k1_cold}, warm {k1_warm}; run walls {w_cold:.2f} s, "
+              f"{w_warm:.2f} s")
+    launches = (k1_cold + k1_warm, 2 * days * len(dts))
+    daily_fit_breakdown(card, root, week)
+    # The kill -9 drill.
+    faults.reset()
+    control = run_daily(7, root / "drill_control", n_events=2000,
+                        datatypes=("flow",), n_sweeps=4, n_topics=10,
+                        max_results=60, seed=7, plants={1: 20, 7: 20})
+    drill = root / "drill"
+    argv = [sys.executable, "-m", "onix_torch.pipelines.daily",
+            "--root", str(drill), *DRILL_WEEK, "--device", device]
+    env = dict(os.environ, PYTHONPATH=str(HERE),
+               ONIX_FAULT_PLAN=DRILL_CHAOS)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, env=env, cwd=str(HERE),
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.monotonic() + 240
+        while not (drill / "ledger" / "day-001.json").exists():
+            if proc.poll() is not None:
+                raise AssertionError("drill: the supervisor exited before "
+                                     "the kill:\n"
+                                     + proc.communicate()[0][-2000:])
+            if time.monotonic() > deadline:
+                raise AssertionError("drill: day 1 never reached the "
+                                     "ledger")
+            time.sleep(0.02)
+        os.kill(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    killed_at = time.perf_counter() - t0
+    if proc.returncode == 0:
+        raise AssertionError("drill: the supervisor finished before the "
+                             "kill")
+    n_before = len(list((drill / "ledger").glob("day-*.json")))
+    out = subprocess.run(argv, env=env, cwd=str(HERE), capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError("drill: the restart failed:\n"
+                             + out.stdout[-2000:] + out.stderr[-2000:])
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    if summary["ok_days"] != 7 or summary["resumed_days"] < 1:
+        raise AssertionError(f"drill: restart summary {summary}")
+    led = DayLedger(drill / "ledger")
+    for i, rec in enumerate(control["days"], start=1):
+        got = led.read(i)
+        want = {k: v for k, v in rec.items()
+                if k not in ("timing", "resumed")}
+        if got is None or got["body"] != want:
+            raise AssertionError(f"drill: day {i} differs from the "
+                                 "uninterrupted run")
+    say(card, f"kill -9 drill: killed {killed_at:.1f} s in with "
+              f"{n_before} day(s) in the ledger, restarted "
+              f"({summary['resumed_days']} resumed): 7 ledger bodies equal "
+              f"the uninterrupted run's; restart wall "
+              f"{summary['wall_s']} s in-run")
+    return launches
+
+
+def phase_campaign(card: str, root: pathlib.Path,
+                   shape: dict = CAMPAIGN) -> None:
+    """(e) The campaign over flow, dns and proxy: the overlapped arm
+    and the sequential arm give identical winners, the OccupancyClock's
+    stage-sum identity holds in both, and the chaos plan resumes to the
+    same winners; one K2 launch a datatype per run. Returns the runs'
+    (K1, K2) launches."""
+    import torch
+
+    from onix_torch.models import fused_serve, sample_count
+    from onix_torch.pipelines.campaign import run_campaign, winners_identical
+    from onix_torch.utils import faults
+    from onix_torch.utils.obs import counters
+    runs = {}
+    k1_all = k2_all = 0
+    for name, extra in (("sequential", dict(overlap=False)),
+                        ("overlapped", dict(overlap=True)),
+                        ("chaos", dict(overlap=True,
+                                       resume_dir=root / "campaign_chaos"))):
+        for ns in ("campaign", "faults", "ckpt"):
+            counters.reset(ns)
+        plan = faults.install_plan(CAMPAIGN_CHAOS) if name == "chaos" \
+            else None
+        torch.cuda.synchronize()
+        sample_count.launches = fused_serve.launches = 0
+        t0 = time.perf_counter()
+        try:
+            m = run_campaign(**shape, **extra)
+        finally:
+            pending = plan.pending() if plan is not None else []
+            faults.reset()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if pending:
+            raise AssertionError(f"campaign chaos: rules never fired: "
+                                 f"{pending}")
+        if not m["aggregate"]["stage_sum_identity_ok"]:
+            raise AssertionError(f"campaign {name}: stage-sum identity")
+        check_launches(f"campaign {name} K2", fused_serve.launches, 3)
+        k1_all += sample_count.launches
+        k2_all += fused_serve.launches
+        hits = {dt: v["planted_in_bottom_k"]
+                for dt, v in m["per_datatype"].items()}
+        if min(hits.values()) <= 0:
+            raise AssertionError(f"campaign {name}: planted hits {hits}")
+        runs[name] = m
+        occ = m["occupancy"]
+        walls = m["orchestration"]["per_datatype_stage_walls_s"]
+        say(card, f"campaign {name}: {shape['n_events']} events x "
+                  f"flow+dns+proxy, {shape['n_sweeps']} sweeps: planted "
+                  f"hits {hits}; wall {wall:.2f} s, driver span "
+                  f"{m['aggregate']['wall_seconds']} s, barrier stall "
+                  f"{m['aggregate']['barrier_stall_s']} s, union busy "
+                  f"{occ['union_busy_s']} s, overlap {occ['overlap_s']} s; "
+                  f"stage walls {json.dumps(walls)}; K1 launches "
+                  f"{sample_count.launches}, fit preemptions "
+                  f"{m['aggregate']['fit_preemptions']}")
+    for name in ("overlapped", "chaos"):
+        if not winners_identical(runs["sequential"], runs[name]):
+            raise AssertionError(f"campaign {name}: winners differ from "
+                                 "the sequential arm")
+    if runs["chaos"]["aggregate"]["fit_preemptions"] < 1:
+        raise AssertionError("campaign chaos: no preemption recovered")
+    return k1_all, k2_all
+
+
+def phase_online(card: str, root: pathlib.Path, table) -> int:
+    """(f) `OnlineUpdater.nudge_and_save` on phase 5's saved model (a
+    copy): the epoch rises by one, the dismissed pair's score rises,
+    the tables and every score of the window equal a CPU nudge's within
+    the SVI rtol, and a live bank over the models dir serves the new
+    epoch uncached. Prints how far the pairs that share neither the
+    dismissed doc nor its word moved. Returns the bank's K2
+    launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from onix_torch import checkpoint
+    from onix_torch.config import FeedbackConfig, LDAConfig
+    from onix_torch.feedback.online import OnlineUpdater
+    from onix_torch.models import fused_serve
+    from onix_torch.serving.model_bank import (BankService, ModelBank,
+                                               ScoreRequest, TenantModel)
+    name = "flow/20160708"
+    models = root / "online_models"
+    src = checkpoint.model_path(root / "day" / "models", name)
+    dst = checkpoint.model_path(models, name)
+    dst.parent.mkdir(parents=True, exist_ok=True)
+    shutil.copy(src, dst)
+    shutil.copy(src.with_suffix(".json"), dst.with_suffix(".json"))
+    m0 = checkpoint.load_model(models, name)
+    d, w, hour, _ = day_requests(table, 1000)
+    sel = hour == 0
+    req = ScoreRequest(name, d[sel], w[sel], window="h0")
+
+    def loader(t):
+        m = checkpoint.load_model(models, t)
+        return None if m is None else TenantModel(
+            m.arrays["theta"], m.arrays["phi_wk"],
+            epoch=int(m.meta.get("model_epoch", 0)))
+    bank = ModelBank(capacity=2, loader=loader,
+                     epoch_loader=lambda t: checkpoint.model_meta_epoch(
+                         models, t))
+    svc = BankService(bank)
+    torch.cuda.synchronize()
+    k2_before = fused_serve.launches
+    (r1,) = svc.score([req], tol=1.0, max_results=64)
+    (r2,) = svc.score([req], tol=1.0, max_results=64)
+    if not r2.cached:
+        raise AssertionError("online: the repeat was not cached")
+    e0 = bank.epoch(name)
+    top = int(r2.topk.indices[0])
+    dd = np.array([req.doc_ids[top]], np.int32)
+    dw = np.array([req.word_ids[top]], np.int32)
+    lab = np.array([3])
+    lda, fb = LDAConfig(n_topics=MAIN_K), FeedbackConfig()
+    t0 = time.perf_counter()
+    res = OnlineUpdater(lda, fb).nudge_and_save(models, name, dd, dw, lab)
+    torch.cuda.synchronize()
+    nudge_s = time.perf_counter() - t0
+    cpu = OnlineUpdater(lda, fb, device="cpu").nudge(
+        m0.arrays["theta"], m0.arrays["phi_wk"], dd, dw, lab)
+    for what, a, b in (("theta", res.theta, cpu.theta),
+                       ("phi_wk", res.phi_wk, cpu.phi_wk)):
+        if not np.allclose(a, b, rtol=SVI_RTOL, atol=1e-7):
+            raise AssertionError(f"online: the card's {what} differs from "
+                                 "the CPU nudge beyond the SVI rtol")
+    m1 = checkpoint.load_model(models, name)
+    if int(m1.meta["model_epoch"]) != int(m0.meta.get("model_epoch", 0)) + 1:
+        raise AssertionError(f"online: epoch {m1.meta['model_epoch']}")
+
+    def p(th, ph, dd_, ww_):
+        return (th[dd_] * ph[ww_]).sum(axis=1)
+    th0, ph0 = m0.arrays["theta"], m0.arrays["phi_wk"]
+    if not (p(res.theta, res.phi_wk, dd, dw) > p(th0, ph0, dd, dw)).all():
+        raise AssertionError("online: the dismissed pair's score fell")
+    # Every score of the window under the card's tables is the CPU
+    # nudge's within twice the SVI rtol (a score multiplies a θ row into
+    # a φ row, each held to the rtol); pairs sharing neither the
+    # dismissed doc nor its word show how far the rest of the model
+    # moved.
+    win_card = p(res.theta, res.phi_wk, req.doc_ids, req.word_ids)
+    win_cpu = p(cpu.theta, cpu.phi_wk, req.doc_ids, req.word_ids)
+    if not np.allclose(win_card, win_cpu, rtol=2 * SVI_RTOL, atol=0):
+        raise AssertionError("online: the window's scores differ from the "
+                             "CPU nudge's beyond the SVI rtol")
+    other = (req.doc_ids != dd[0]) & (req.word_ids != dw[0])
+    rel = win_card[other] / p(th0, ph0, req.doc_ids[other],
+                              req.word_ids[other])
+    (r3,) = svc.score([req], tol=1.0, max_results=64)
+    torch.cuda.synchronize()
+    if r3.cached or bank.epoch(name) <= e0:
+        raise AssertionError("online: the live bank served the old epoch")
+    if not (int(r3.topk.indices[0]) != top
+            or float(r3.topk.scores[0]) > float(r2.topk.scores[0])):
+        raise AssertionError("online: the bank's winners did not move")
+    k2 = fused_serve.launches - k2_before
+    say(card, f"online: nudge_and_save on {name} (dismissed doc {dd[0]}, "
+              f"word {dw[0]}) in {nudge_s:.3f} s: epoch "
+              f"{m0.meta.get('model_epoch', 0)} -> {m1.meta['model_epoch']}, "
+              f"pair score {float(p(th0, ph0, dd, dw)[0]):.6g} -> "
+              f"{float(p(res.theta, res.phi_wk, dd, dw)[0]):.6g}; the "
+              f"window's {len(win_card)} scores equal to the CPU nudge's "
+              f"within rtol {2 * SVI_RTOL}; its {int(other.sum())} pairs of "
+              f"another doc and word moved by {np.abs(rel - 1).max():.4f} at "
+              f"most, {np.median(np.abs(rel - 1)):.2e} median; the live "
+              f"bank re-scored "
+              f"at epoch {bank.epoch(name)} (was {e0}), uncached; K2 "
+              f"launches {k2}")
+    return k2
+
+
+def phase_lifecycle(card: str, root: pathlib.Path, table) -> tuple:
+    """Phase 13 (b) to (f): the lifecycle on the card. Returns (the
+    fleet week's K1 launches, the phase's K1 launches, its K2
+    launches)."""
+    t0 = time.perf_counter()
+    k1_week, k1, k2 = phase_fleet(card, root)
+    t1 = time.perf_counter()
+    k1_d, k2_d = phase_daily(card, root)
+    t2 = time.perf_counter()
+    k1_c, k2_c = phase_campaign(card, root)
+    t3 = time.perf_counter()
+    k2_o = phase_online(card, root, table)
+    t4 = time.perf_counter()
+    say(card, f"phase 13 walls: fleet {t1 - t0:.1f} s, daily and drill "
+              f"{t2 - t1:.1f} s, campaign {t3 - t2:.1f} s, online "
+              f"{t4 - t3:.1f} s")
+    return k1_week, k1 + k1_d + k1_c, k2 + k2_d + k2_c + k2_o
+
+
 def main() -> int:
     try:
         import torch
@@ -3753,6 +4604,14 @@ def main() -> int:
         launches["fused_serve"] += phase_rescore(card, root, table)
         rows["fused_serve"]["gate_crossover_events"] = phase_gate(card)
         say(card, f"phase 12 passed in {time.perf_counter() - t12:.1f} s")
+        t13 = time.perf_counter()
+        rows["sample_count"]["lanes"] = phase_lane_step(card)
+        k1_week, k1, k2 = phase_lifecycle(card, root, table)
+        rows["sample_count"]["lanes"]["launches"] = k1_week
+        launches["sample_count"] += k1
+        launches["fused_serve"] += k2
+        no_fallback("phase 13")
+        say(card, f"phase 13 passed in {time.perf_counter() - t13:.1f} s")
     for name, row in rows.items():
         row["launches"] = launches[name]
     say(card, f"all phases passed in {time.perf_counter() - t0:.1f} s")

@@ -1,5 +1,5 @@
-"""Carry fitted tables, sampler state, SVI state and filter tables
-across from the JAX package.
+"""Carry fitted tables, sampler state, SVI state, filter tables and
+the fleet refit's stacked classes across from the JAX package.
 
 The functions take numpy arrays — what `np.asarray` gives for the
 fields of the reference's `GibbsState`, for its fitted θ/φ, or for the
@@ -55,6 +55,29 @@ def model_from_numpy(theta, phi_wk, device) -> tuple[torch.Tensor,
         return torch.tensor(np.asarray(a), dtype=torch.float32,
                             device=device)
     return t(theta), t(phi_wk)
+
+
+#: A fleet class's lane arrays and their tensor types.
+_LANE_DTYPES = {"z0": torch.int32, "docs": torch.int32,
+                "words": torch.int32, "mask": torch.float32,
+                "fb_docs": torch.int32, "fb_words": torch.int32,
+                "fb_weights": torch.int32}
+
+
+def fleet_class_from_numpy(arrays, device) -> dict:
+    """The port's lane tensors on `device` from a stacked shape class:
+    the reference's `fleet_gibbs.ShapeClass` (or the port's), or a dict
+    of its arrays such as `fleet_shard.shard_class` returns. z0, docs,
+    words and mask [T, n_blocks, B] and the nudge rows [T, F] become
+    contiguous tensors; `keys` stays the host array it was (the
+    reference's uint32 JAX keys, or the port's int64 lane seeds)."""
+    get = (arrays.__getitem__ if isinstance(arrays, dict)
+           else lambda name: getattr(arrays, name))
+    out = {name: torch.from_numpy(np.ascontiguousarray(
+        np.asarray(get(name)))).to(device=device, dtype=dt).contiguous()
+        for name, dt in _LANE_DTYPES.items()}
+    out["keys"] = np.asarray(get("keys"))
+    return out
 
 
 def filter_tables_from_numpy(leaves, device) -> FilterTables:

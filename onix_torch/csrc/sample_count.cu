@@ -36,6 +36,15 @@
 // A chain stride need not be the operand's size: the fit's z operand is
 // the strided view z[:, i] of its [C, n_blocks, B] state.
 //
+// Lanes. The fleet refit (onix/models/fleet_gibbs.py:375-392) vmaps the
+// block step over tenants, and each tenant lane has its own token ids
+// and mask. So d, w and mask carry a stride too: 0 when every chain
+// shares them (the chains above), a lane's row stride when each row of
+// a [C, B] operand (or the strided view docs[:, i] of a [C, n_blocks,
+// B] stack) belongs to one lane. Both kernels offset their id and mask
+// reads by blockIdx.y times that stride; the apply kernel's atomics
+// already land in the lane's own tables.
+//
 // One C function, `onix_gibbs_block`, launches two kernels on the
 // caller's stream: `sample_kernel` (or, for K above about 4,000,
 // `sample_row_kernel`) writes z_new to a scratch buffer and changes no
@@ -118,8 +127,10 @@ constexpr int kMaxChains = 65535;   // gridDim.y
 // Each per-chain operand's chain stride, in elements. The targets of the
 // apply kernel step with their sources: the word target with n_wk, the
 // doc target with n_dk, the topic-total target with n_k, z_out with z.
+// d, w and mask are the token ids and mask: 0 when the chains share
+// them, a lane's row stride when each chain has its own.
 struct ChainStrides {
-  int64_t dk, wk, k, noise, z, zn;
+  int64_t dk, wk, k, noise, z, zn, d, w, mask;
 };
 
 // The score of one element, given the topic-total term of its column:
@@ -157,6 +168,9 @@ __global__ void __launch_bounds__(kThreads) sample_kernel(
   noise += c * cs.noise;
   z_old += c * cs.z;
   z_new += c * cs.zn;
+  d += c * cs.d;
+  w += c * cs.w;
+  mask += c * cs.mask;
   const int stride = k_topics | 1;
   float* s_score = smem;                               // [tile][stride]
   float* s_nk = s_score + tile * stride;               // [2][K]
@@ -264,6 +278,9 @@ __global__ void __launch_bounds__(kThreads) sample_row_kernel(
   noise += c * cs.noise;
   z_old += c * cs.z;
   z_new += c * cs.zn;
+  d += c * cs.d;
+  w += c * cs.w;
+  mask += c * cs.mask;
   const int t = blockIdx.x;
   const int zo = z_old[t];
   if (!(mask[t] > 0.0f)) {
@@ -327,6 +344,8 @@ __global__ void __launch_bounds__(kThreads) apply_kernel(
   const int64_t c = blockIdx.y;
   z_new += c * cs.zn;
   z_old += c * cs.z;
+  d += c * cs.d;
+  w += c * cs.w;
   if (word_target != nullptr) word_target += c * cs.wk;
   if (doc_target != nullptr) doc_target += c * cs.dk;
   if (nk_target != nullptr) nk_target += c * cs.k;
@@ -389,8 +408,9 @@ bool vector_form(const void* n_dk, const void* n_wk, const void* noise,
 // to the non-null targets; both kernels on `stream`, each with one grid
 // row (blockIdx.y) a chain. z_new is the sample's output (scratch for
 // the in-place step). s_* are the chain strides, in elements, of n_dk,
-// n_wk, n_k, noise, z (z_old and z_out) and z_new; they are not read
-// when n_chains is 1. Returns cudaGetLastError() after the second
+// n_wk, n_k, noise, z (z_old and z_out), z_new, d, w and mask (the last
+// three 0 when the ids and mask are shared); they are not read when
+// n_chains is 1. Returns cudaGetLastError() after the second
 // launch (0 = both launched), or the first error met. An empty block
 // launches nothing.
 extern "C" int onix_gibbs_block(
@@ -400,12 +420,14 @@ extern "C" int onix_gibbs_block(
     void* z_out, int n_tokens, int k_topics, float alpha, float eta,
     float v_eta, int use_gumbel, int n_chains, long long s_dk,
     long long s_wk, long long s_k, long long s_noise, long long s_z,
-    long long s_zn, void* stream) {
+    long long s_zn, long long s_d, long long s_w, long long s_mask,
+    void* stream) {
   if (n_tokens <= 0) return (int)cudaSuccess;
   if (k_topics < 1 || n_chains < 1 || n_chains > kMaxChains)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const ChainStrides cs{s_dk, s_wk, s_k, s_noise, s_z, s_zn};
+  const ChainStrides cs{s_dk, s_wk, s_k, s_noise, s_z, s_zn, s_d, s_w,
+                        s_mask};
   if (sample_smem(1, k_topics) > kSmemFloats * sizeof(float)) {
     sample_row_kernel<<<dim3(n_tokens, n_chains), kThreads, 0, s>>>(
         (const int32_t*)n_dk, (const int32_t*)n_wk, (const int32_t*)n_k,

@@ -22,6 +22,10 @@ holds the kernels against). Nothing falls back. `launches` counts the
 calls that launched the kernels (a plain integer): one per block, for
 all chains together.
 
+Lanes. `gibbs_block_step_` takes the block's ids and mask either as
+[B], shared by every chain, or as [C, B], one row per lane: the fleet
+refit steps C tenants, each with its own tokens, in one call.
+
 Unlike the Pallas kernel, which took pre-gathered [B, K] rows, both
 forms take the whole count tables and the token ids and gather the rows
 themselves.
@@ -82,12 +86,21 @@ def _workspace(shape, device):
     return tuple(b[:n].view(shape) for b in bufs)
 
 
+def _lane_rows(table, rows):
+    """Flat row positions in `table` [C, R, K] viewed as [C * R, K] for
+    ids `rows`, [C * B]: ids [B] shared by every chain read each
+    chain's table at the same rows, ids [C, B] each lane's own."""
+    lanes = torch.arange(table.shape[0], device=rows.device)[:, None]
+    return (rows.to(torch.int64) + lanes * table.shape[1]).reshape(-1)
+
+
 def sample_scores(n_dk, n_wk, n_k, noise, d, w, z_old, *, alpha: float,
                   eta: float, v_eta: float, use_gumbel: bool, work=None):
     """The [B, K] f32 score rows whose argmax is K1's draw ([C, B, K]
     for chained counts [C, D, K], ...): the float ops of
     `lda_gibbs.make_block_step`, in the same order. The tests read them
-    to find near-ties.
+    to find near-ties. Chained counts take ids [B] shared by the chains
+    or [C, B], one row a lane.
 
     The reference subtracts a one-hot of the token's own topic from its
     gathered rows. Here the factors are taken once over the tables and
@@ -102,18 +115,23 @@ def sample_scores(n_dk, n_wk, n_k, noise, d, w, z_old, *, alpha: float,
                              v_eta=v_eta, use_gumbel=use_gumbel,
                              work=work)[0]
     kw = dict(alpha=alpha, eta=eta, v_eta=v_eta, use_gumbel=use_gumbel)
-    k_topics = n_dk.shape[-1]
+    c_lead, k_topics = n_dk.shape[0], n_dk.shape[-1]
     rows_d, rows_w = d.to(torch.int64), w.to(torch.int64)
     fa, fb, fc = _factors(n_dk, n_wk, n_k, **kw)
     s, tmp = work or (None, None)
-    tmp = torch.index_select(fb, 1, rows_w, out=tmp)
-    s = _combine(torch.index_select(fa, 1, rows_d, out=s), tmp,
-                 fc[:, None, :], use_gumbel)
+    def take(f, rows, out):
+        out = None if out is None else out.view(-1, k_topics)
+        return torch.index_select(f.reshape(-1, k_topics), 0,
+                                  _lane_rows(f, rows),
+                                  out=out).view(c_lead, -1, k_topics)
+    tmp = take(fb, rows_w, tmp)
+    s = _combine(take(fa, rows_d, s), tmp, fc[:, None, :], use_gumbel)
     zs, real = _own_topic(z_old, k_topics)
 
     def own(table, rows):
         flat = table.reshape(table.shape[0], -1)
-        return torch.gather(flat, 1, rows[None] * k_topics + zs) - 1
+        rows = rows if rows.dim() == 2 else rows[None]
+        return torch.gather(flat, 1, rows * k_topics + zs) - 1
     s_own = _combine(*_factors(own(n_dk, rows_d), own(n_wk, rows_w),
                                torch.gather(n_k, 1, zs) - 1, **kw),
                      use_gumbel)
@@ -153,8 +171,9 @@ def move_counts_(n_dk, n_wk, n_k, d, w, z_old, z_new) -> None:
     """Move each real token's count from its old topic to its new one,
     in place: -1 at (d, z_old) and +1 at (d, z_new) in n_dk, the same in
     n_wk at w and in n_k; padding (topic K) touches nothing. Chained
-    counts [C, ...] take z [C, B] and shared ids [B]. Integer adds, so
-    the result does not depend on their order."""
+    counts [C, ...] take z [C, B] and ids [B], shared, or [C, B], one
+    row a lane. Integer adds, so the result does not depend on their
+    order."""
     if n_dk.dim() == 2:
         move_counts_(n_dk[None], n_wk[None], n_k[None], d, w, z_old[None],
                      z_new[None])
@@ -162,7 +181,9 @@ def move_counts_(n_dk, n_wk, n_k, d, w, z_old, z_new) -> None:
     k_topics = n_k.shape[-1]
     topics, ones = _moves(z_old, z_new, k_topics)
     for table, rows in ((n_dk, d), (n_wk, w)):
-        rows = rows.to(torch.int64).repeat(2)[None] * k_topics
+        rows = rows.to(torch.int64)
+        rows = (rows.repeat(1, 2) if rows.dim() == 2
+                else rows.repeat(2)[None]) * k_topics
         table.view(table.shape[0], -1).scatter_add_(1, rows + topics, ones)
     n_k.scatter_add_(1, topics, ones)
 
@@ -195,12 +216,13 @@ def gibbs_block_step_plain(n_dk, n_wk, n_k, z, noise, d, w, mask, *,
     """The block step in PyTorch ops, in place: every token drawn from
     the counts as they are (`sample_scores`), then the deltas added
     (`move_counts_`), as the reference's block step does. Chained
-    operands ([C, ...], ids shared) step every chain in the same ops,
-    each chain exactly as a one-chain call on its slices."""
+    operands ([C, ...], ids and mask shared or one row a lane) step
+    every chain in the same ops, each chain exactly as a one-chain call
+    on its slices, gathering each lane's rows by its own ids."""
     lead = n_dk.shape[0] if n_dk.dim() == 3 else 1
     s = sample_scores(n_dk, n_wk, n_k, noise, d, w, z, alpha=alpha,
                       eta=eta, v_eta=v_eta, use_gumbel=use_gumbel,
-                      work=_workspace((lead, d.shape[0], n_dk.shape[-1]),
+                      work=_workspace((lead, d.shape[-1], n_dk.shape[-1]),
                                       n_dk.device))
     z_new = torch.where(mask > 0, first_argmax(s), z)
     move_counts_(n_dk, n_wk, n_k, d, w, z, z_new)
@@ -220,11 +242,14 @@ def _check(n_dk, n_wk, n_k, noise, d, w, z, mask, z_name: str, *,
            chains: bool):
     """Types, shapes, devices and layout of K1's operands. With
     `chains`, n_dk may be [C, D, K]; then n_wk, n_k, noise and z carry
-    the same leading C and the ids and mask stay [B], shared."""
+    the same leading C, and the ids and mask are either [B], shared by
+    every chain, or [C, B], one row a lane (2-D d, w and mask)."""
     chained = chains and n_dk.dim() == 3
     lead = (n_dk.shape[0],) if chained else ()
+    lanes = chained and d.dim() == 2
+    ids = lead if lanes else ()
     k_topics = n_dk.shape[-1] if n_dk.dim() == len(lead) + 2 else -1
-    b = d.shape[0] if d.dim() == 1 else -1
+    b = d.shape[-1] if d.dim() == len(ids) + 1 else -1
 
     def rows(t):
         return t.shape[-2] if t.dim() >= 2 else -1
@@ -233,12 +258,14 @@ def _check(n_dk, n_wk, n_k, noise, d, w, z, mask, z_name: str, *,
         "n_wk": (n_wk, torch.int32, (*lead, rows(n_wk), k_topics)),
         "n_k": (n_k, torch.int32, (*lead, k_topics)),
         "noise": (noise, torch.float32, (*lead, b, k_topics)),
-        "d": (d, torch.int32, (b,)),
-        "w": (w, torch.int32, (b,)),
+        "d": (d, torch.int32, (*ids, b)),
+        "w": (w, torch.int32, (*ids, b)),
         z_name: (z, torch.int32, (*lead, b)),
-        "mask": (mask, torch.float32, (b,)),
+        "mask": (mask, torch.float32, (*ids, b)),
     }
     per_chain = {"n_dk", "n_wk", "n_k", "noise", z_name}
+    if lanes:
+        per_chain |= {"d", "w", "mask"}
     device = n_dk.device
     for name, (t, dtype, shape) in want.items():
         if t.dtype != dtype:
@@ -303,7 +330,9 @@ def gibbs_block_step_(n_dk, n_wk, n_k, z, noise, d, w, mask, *,
     be the strided view z[:, i] of a [C, n_blocks, B] state (its chain
     stride is passed to the kernels, and nothing is copied); d, w and
     mask stay [B], shared by every chain, as the reference broadcasts
-    them under `vmap`.
+    them under `vmap`, or are [C, B], one row a lane, as the fleet
+    refit's tenants (each may be a strided view docs[:, i] of a [C,
+    n_blocks, B] stack: its lane stride goes to the kernels).
 
     CUDA tensors go through the kernels (one call for all chains: a
     sample kernel, then an apply kernel, and no other launch), CPU
@@ -325,13 +354,15 @@ def _launch(n_dk, n_wk, n_k, noise, d, w, z_old, mask, z_new, *, word,
     `z_new`, then apply the deltas to the non-None targets. A leading
     chain axis on n_dk runs every chain in the same two kernels."""
     global launches
-    b, k_topics = int(d.shape[0]), int(n_dk.shape[-1])
+    b, k_topics = int(d.shape[-1]), int(n_dk.shape[-1])
     if b == 0:
         return
     chained = n_dk.dim() == 3
     n_chains = int(n_dk.shape[0]) if chained else 1
     strides = [t.stride(0) if chained else 0
                for t in (n_dk, n_wk, n_k, noise, z_old, z_new)]
+    # The ids' and mask's lane strides: 0 when the chains share them.
+    strides += [t.stride(0) if t.dim() == 2 else 0 for t in (d, w, mask)]
     lib = _library()
 
     def ptr(t):
@@ -356,6 +387,6 @@ def _library():
     if lib.onix_gibbs_block.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.onix_gibbs_block.argtypes = ([p] * 13 + [i, i, f, f, f, i, i]
-                                         + [ctypes.c_longlong] * 6 + [p])
+                                         + [ctypes.c_longlong] * 9 + [p])
         lib.onix_gibbs_block.restype = ctypes.c_int
     return lib

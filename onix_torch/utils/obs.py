@@ -1,11 +1,11 @@
 """Observability for the port: profiler spans, the run event log, a
 throughput meter and the process-wide event counters.
 
-`RunLog`, `Meter` and `CounterRegistry`/`counters` are copies of their
-counterparts in `onix/utils/obs.py`. `trace_scope` and `maybe_trace` keep their names
-but wrap `torch.profiler`: a span is a `record_function` range, and a
-trace is written only when the caller or ONIX_PROFILE_DIR names a
-directory.
+`RunLog`, `Meter`, `CounterRegistry`/`counters` and `OccupancyClock`
+are copies of their counterparts in `onix/utils/obs.py`. `trace_scope`
+and `maybe_trace` keep their names but wrap `torch.profiler`: a span is
+a `record_function` range, and a trace is written only when the caller
+or ONIX_PROFILE_DIR names a directory.
 """
 
 from __future__ import annotations
@@ -172,3 +172,109 @@ class CounterRegistry:
 
 #: The process-global registry (tests reset() it between cases).
 counters = CounterRegistry()
+
+
+class OccupancyClock:
+    """Overlap-exact wall accounting for pipelined multi-stage runs —
+    the shared discipline behind the r14 campaign orchestrator
+    (onix/pipelines/campaign.py), generalizing the streaming
+    prefetcher's rule that only CONSUMER-BLOCKED seconds count as wait
+    (streaming.py prefetch_wait; docs/PERF.md r10).
+
+    `busy(name)` marks a stage busy on the calling thread; stages may
+    run concurrently on different threads. `blocked(name)` records
+    consumer-blocked seconds — time a thread spent waiting on another
+    stage's output, the pipeline's barrier stalls. Derived numbers:
+
+      * busy_s[name]    — per-stage busy seconds (sum over threads);
+      * union_busy_s    — wall seconds during which >= 1 stage was
+                          busy (active-count 0→1/1→0 transitions);
+      * overlap_s       — Σ busy − union: seconds of genuinely
+                          concurrent stage work (0 in a sequential
+                          run — the assertable difference between the
+                          orchestrator's two arms);
+      * the stage-sum identity — for any single thread, Σ its busy
+                          spans + Σ its blocked spans + its idle ==
+                          its elapsed span. The campaign asserts it
+                          for the driver thread (check_stage_sum).
+
+    Thread-safe; snapshot at quiescence (open busy spans are not yet
+    in union_busy_s)."""
+
+    #: Lock discipline, machine-checked by the `locks` analysis pass:
+    #: stages run on several threads; every tally mutates under _lock.
+    GUARDED_BY = {"busy_s": "_lock", "blocked_s": "_lock",
+                  "_active": "_lock", "_active_since": "_lock",
+                  "union_busy_s": "_lock"}
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._t0 = time.perf_counter()
+        self.busy_s: dict[str, float] = {}
+        self.blocked_s: dict[str, float] = {}
+        self._active = 0
+        self._active_since = 0.0
+        self.union_busy_s = 0.0
+
+    @contextlib.contextmanager
+    def busy(self, name: str):
+        t0 = time.perf_counter()
+        with self._lock:
+            if self._active == 0:
+                self._active_since = t0
+            self._active += 1
+        try:
+            yield
+        finally:
+            t1 = time.perf_counter()
+            with self._lock:
+                self._active -= 1
+                if self._active == 0:
+                    self.union_busy_s += t1 - self._active_since
+                self.busy_s[name] = (self.busy_s.get(name, 0.0)
+                                     + (t1 - t0))
+
+    @contextlib.contextmanager
+    def blocked(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            with self._lock:
+                self.blocked_s[name] = (self.blocked_s.get(name, 0.0)
+                                        + (time.perf_counter() - t0))
+
+    @property
+    def span_s(self) -> float:
+        return time.perf_counter() - self._t0
+
+    def check_stage_sum(self, stage_names, blocked_names=None,
+                        span_s: float | None = None,
+                        tol_s: float = 0.25) -> tuple[bool, float]:
+        """The stage-sum identity for one thread's stages: Σ busy +
+        Σ blocked must not exceed the thread's span, and the residual
+        (idle) must be non-negative — accounted time can never exceed
+        wall. Returns (ok, residual_idle_s); `tol_s` absorbs clock
+        granularity."""
+        span = self.span_s if span_s is None else span_s
+        with self._lock:
+            accounted = sum(self.busy_s.get(n, 0.0) for n in stage_names)
+            accounted += sum(
+                self.blocked_s.get(n, 0.0)
+                for n in (blocked_names if blocked_names is not None
+                          else self.blocked_s))
+        residual = span - accounted
+        return residual >= -tol_s, residual
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            total = sum(self.busy_s.values())
+            return {
+                "span_s": round(time.perf_counter() - self._t0, 3),
+                "busy_s": {k: round(v, 3)
+                           for k, v in sorted(self.busy_s.items())},
+                "blocked_s": {k: round(v, 3)
+                              for k, v in sorted(self.blocked_s.items())},
+                "union_busy_s": round(self.union_busy_s, 3),
+                "overlap_s": round(max(total - self.union_busy_s, 0.0), 3),
+            }

@@ -64,6 +64,12 @@ SERVING_MODULES = ("onix_torch.feedback.filter", "onix_torch.oa.feedback",
                    "onix_torch.feedback.rescore",
                    "onix_torch.ingest.watcher", "onix_torch.ingest.mpingest",
                    "onix_torch.pipelines.synth2")
+LIFECYCLE_MODULES = ("onix_torch.pipelines.campaign",
+                     "onix_torch.pipelines.daily",
+                     "onix_torch.pipelines.fleet",
+                     "onix_torch.models.fleet_gibbs",
+                     "onix_torch.parallel.fleet_shard",
+                     "onix_torch.feedback.online")
 
 
 def test_port_package_list_is_not_empty():
@@ -71,7 +77,8 @@ def test_port_package_list_is_not_empty():
     for must in ("onix_torch/models/lda_gibbs.py",
                  "onix_torch/models/sample_count.py",
                  "onix_torch/pipelines/run.py", "chip_smoke.py",
-                 *(m.replace(".", "/") + ".py" for m in SERVING_MODULES)):
+                 *(m.replace(".", "/") + ".py"
+                   for m in SERVING_MODULES + LIFECYCLE_MODULES)):
         assert must in names
 
 
@@ -79,6 +86,17 @@ def test_serving_modules_load_neither_jax_nor_onix():
     probe = subprocess.run(
         [sys.executable, "-c",
          f"import sys; import {', '.join(SERVING_MODULES)}; "
+         "print(sorted(m for m in sys.modules "
+         "if m.split('.')[0] in ('jax', 'onix')))"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert probe.returncode == 0, probe.stderr[-2000:]
+    assert probe.stdout.strip() == "[]"
+
+
+def test_lifecycle_modules_load_neither_jax_nor_onix():
+    probe = subprocess.run(
+        [sys.executable, "-c",
+         f"import sys; import {', '.join(LIFECYCLE_MODULES)}; "
          "print(sorted(m for m in sys.modules "
          "if m.split('.')[0] in ('jax', 'onix')))"],
         cwd=ROOT, capture_output=True, text=True, timeout=300)

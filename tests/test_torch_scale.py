@@ -24,15 +24,31 @@ torch = pytest.importorskip("torch")
 from onix.parallel import mesh as jmesh  # noqa: E402
 from onix.pipelines import scale as jscale  # noqa: E402
 from onix.pipelines import synth as jsynth  # noqa: E402
+from onix.utils.obs import counters as jcounters  # noqa: E402
 from onix_torch.parallel import sharded_gibbs as tsg  # noqa: E402
 from onix_torch.pipelines import scale as tscale  # noqa: E402
 from onix_torch.pipelines import synth as tsynth  # noqa: E402
+from onix_torch.utils.obs import counters as tcounters  # noqa: E402
 from tests.test_torch_sharded import ShardedReplayNoise  # noqa: E402
 
 ULP8 = 8 * 2.0 ** -23
 # Manifest keys the port adds to the reference's: the torch device's
 # name, K1 and K2 launches, and the split of gibbs_fit.
 PORT_ONLY_KEYS = {"device", "kernel_launches", "fit_walls_seconds"}
+
+
+# The counter namespaces a scale manifest's `resilience` block reads. A
+# clean run tallies none, so the block is absent from both manifests;
+# another test in the same process may have left counts in either
+# package's registry, and those are cleared before each test here.
+RESILIENCE_NAMESPACES = ("ingest", "salvage", "faults", "ckpt", "scale")
+
+
+@pytest.fixture(autouse=True)
+def _no_counts_left_by_other_tests():
+    for ns in RESILIENCE_NAMESPACES:
+        jcounters.reset(ns)
+        tcounters.reset(ns)
 
 
 def assert_manifest_keys(tm, jm):
