@@ -198,6 +198,30 @@ non-zero and prints no result line):
              up by one, the dismissed pair's score up, the tables and
              the window's scores equal a CPU nudge's within the SVI
              rtol, a live bank serves the new epoch uncached.
+14. analyst — (a) `python -m onix_torch.cli setup --device cuda` twice in
+             a fresh store: the datatype directories, the archived
+             config and the three notebook templates, which import
+             `onix_torch`. (b) `run_demo` at the reference's defaults
+             (20,000 events a datatype, the default LDA settings,
+             serving.save_fitted on): every OA file of each datatype,
+             summary.json's `run` block without a null, K1 launches =
+             the manifests' block steps; the score and run_oa walls. (c)
+             `serve_background` on the card: the UI pages, `/data/` and
+             HEAD answer the files on disk, traversal 403/404, the
+             notebook routes render or answer the reference's 501
+             guidance as the installed Jupyter stack implies (printed),
+             a kernel session runs the flow template's load cell
+             without torch; no bank until the first /score, which is one
+             K2 launch with the plain version's winners. (d) `label
+             2016-07-08 flow 1 2 3 --label 3` through the command line,
+             one benign pair by POST /feedback (the epoch moves, the
+             pair leaves the next /score, winners equal the plain
+             version's under the filter), the day re-scored with 4 x
+             dupfactor feedback tokens and at least one labelled pair
+             scored higher or gone, then `oa` again. (e) `oa` on phase
+             5's day at pipeline.max_results: the wall and the rows.
+             (f) the demo on the sessions generator in a second store;
+             a mixture re-run there is refused.
 
 The last lines of standard output are the card's name and power limit,
 a `{"kernels": [...]}` line, and `{"ok": true, "device": {...}}`.
@@ -2264,18 +2288,21 @@ def phase_scale(card: str, root: pathlib.Path, table, planted,
 
 class Calls:
     """Keeps every call of the function `owner.name` while the block
-    runs, as (args, kwargs, result) in `calls`: what `run_scale`
-    selects (`scale._stream_score`), or what the stream tail hands K2
-    (`fused_serve.fused_stream_tail`)."""
+    runs, as (args, kwargs, result) in `calls` and its wall seconds in
+    `walls`: what `run_scale` selects (`scale._stream_score`), what the
+    stream tail hands K2 (`fused_serve.fused_stream_tail`), or how long
+    the demo's `run_oa` took."""
 
     def __init__(self, owner, name: str):
-        self.owner, self.name, self.calls = owner, name, []
+        self.owner, self.name, self.calls, self.walls = owner, name, [], []
 
     def __enter__(self):
         self.real = getattr(self.owner, self.name)
 
         def call(*a, **kw):
+            t0 = time.perf_counter()
             out = self.real(*a, **kw)
+            self.walls.append(time.perf_counter() - t0)
             self.calls.append((a, kw, out))
             return out
         setattr(self.owner, self.name, call)
@@ -4533,6 +4560,433 @@ def phase_lifecycle(card: str, root: pathlib.Path, table) -> tuple:
     return k1_week, k1 + k1_d + k1_c, k2 + k2_d + k2_c + k2_o
 
 
+# -- phase 14 ---------------------------------------------------------------
+
+# The analyst side at the reference's demo defaults (onix/cli.py `demo`:
+# 20,000 events a datatype, the default LDA settings).
+DEMO_EVENTS = 20_000
+UI_PAGES = ("/", "/flow/suspicious.html", "/dns/suspicious.html",
+            "/proxy/suspicious.html", "/onix.js", "/onix.css")
+RUN_KEYS = ("n_events", "n_docs", "n_vocab", "n_tokens", "engine",
+            "config_hash", "seed", "wall_seconds", "events_per_sec",
+            "ll_series")
+
+
+def http_raw(port: int, method: str, path: str, body: bytes | None = None,
+             headers: dict | None = None):
+    """One request on a fresh connection: (status, headers, body)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        r = conn.getresponse()
+        return r.status, dict(r.getheaders()), r.read()
+    finally:
+        conn.close()
+
+
+def port_cli(card: str, args: list) -> float:
+    """`python -m onix_torch.cli <args>` in a child process, as a user
+    runs it; raises unless it exits 0. Returns its wall seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "onix_torch.cli", *args],
+                          cwd=HERE, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"onix_torch.cli {args[0]} exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    say(card, f"analyst: python -m onix_torch.cli {' '.join(args[:6])} ...: "
+              f"rc 0 in {wall:.2f} s; {proc.stdout.strip()[-160:]}")
+    return wall
+
+
+def demo_k1_want(cfg, what: str) -> int:
+    """K1's calls that the three demo days' manifests imply: one a block
+    step, sweeps x blocks of the day's tokens. Each manifest's own
+    count must say the same."""
+    from onix_torch.store import results_path
+    want = 0
+    for t in ("flow", "dns", "proxy"):
+        man = json.loads(results_path(cfg.store.results_dir, t, "2016-07-08")
+                         .with_suffix(".manifest.json").read_text())
+        steps = cfg.lda.n_sweeps * math.ceil(man["n_tokens"]
+                                             / cfg.lda.block_size)
+        check_launches(f"{what} {t} manifest",
+                       man["kernel_launches"]["sample_count"], steps)
+        want += steps
+    return want
+
+
+def check_oa_day(cfg, datatype: str, n_events: int) -> dict:
+    """The OA files of the demo day of `datatype`; returns summary.json."""
+    from onix_torch.oa.engine import oa_dir
+    day = oa_dir(cfg, datatype, "2016-07-08")
+    for name in ("suspicious.csv", "suspicious.json", "summary.json",
+                 "graph.json", "storyboard.json", "geo.json", "ingest.json"):
+        if not (day / name).is_file():
+            raise AssertionError(f"demo: {datatype} lacks OA file {name}")
+    dates = json.loads((day.parent / "dates.json").read_text())
+    if dates != ["2016-07-08"]:
+        raise AssertionError(f"demo: {datatype} dates.json is {dates}")
+    summary = json.loads((day / "summary.json").read_text())
+    run = summary.get("run", {})
+    nulls = [k for k in RUN_KEYS if run.get(k) is None]
+    if summary["n_results"] <= 0 or run.get("n_events") != n_events \
+            or nulls:
+        raise AssertionError(f"demo: {datatype} summary.json: n_results "
+                             f"{summary['n_results']}, run.n_events "
+                             f"{run.get('n_events')}, null keys {nulls}")
+    return summary
+
+
+def notebook_stack() -> tuple:
+    """Whether the installed Jupyter stack renders (nbformat, nbconvert)
+    and executes (those and nbclient, ipykernel) a hosted notebook."""
+    import importlib.util
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("nbformat", "nbconvert", "nbclient", "ipykernel")}
+    render = have["nbformat"] and have["nbconvert"]
+    return render, render and have["nbclient"] and have["ipykernel"]
+
+
+def phase_demo(card: str, root: pathlib.Path):
+    """Phase 14 (a) and (b): setup twice through the command line, then
+    `run_demo` at the reference's defaults on the card. Returns (its
+    config, its K1 launches, its -s flags)."""
+    import torch
+
+    from onix_torch.config import load_config
+    from onix_torch.models import sample_count
+    from onix_torch.oa import engine
+    from onix_torch.oa.notebooks import code_cells
+    from onix_torch.pipelines import run
+    from onix_torch.setup_cmd import run_demo
+    overrides = [f"store.root={root}", "serving.save_fitted=true"]
+    flags = [a for o in overrides for a in ("-s", o)]
+    for _ in range(2):
+        port_cli(card, ["setup", "--device", "cuda", *flags])
+    cfg = load_config(None, overrides)
+    for t in ("flow", "dns", "proxy"):
+        if not (root / t).is_dir():
+            raise AssertionError(f"setup: no {t} directory")
+    if not (root / "onix.config.json").is_file():
+        raise AssertionError("setup: the config was not archived")
+    for t in ("flow", "dns", "proxy"):
+        nb = (pathlib.Path(cfg.oa.data_dir) / "notebooks"
+              / f"{t}_threat_investigation.ipynb")
+        src = "\n".join(code_cells(nb))
+        if "from onix_torch." not in src or "from onix." in src:
+            raise AssertionError(f"setup: {nb.name} does not import the "
+                                 "port")
+    torch.cuda.synchronize()
+    sample_count.launches = 0
+    t0 = time.perf_counter()
+    with Calls(run, "run_scoring") as score, Calls(engine, "run_oa") as oa:
+        rc = run_demo(cfg, n_events=DEMO_EVENTS, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"run_demo returned {rc}")
+    k1 = sample_count.launches
+    check_launches("demo K1", k1, demo_k1_want(cfg, "demo"))
+    for i, t in enumerate(("flow", "dns", "proxy")):
+        summary = check_oa_day(cfg, t, DEMO_EVENTS)
+        run_ = summary["run"]
+        say(card, f"demo: {t}: {run_['n_events']} events, D={run_['n_docs']}"
+                  f" V={run_['n_vocab']} N={run_['n_tokens']}, "
+                  f"{summary['n_results']} results; score wall "
+                  f"{score.walls[i]:.3f} s (manifest {run_['wall_seconds']}"
+                  f" s), run_oa wall {oa.walls[i]:.3f} s")
+    say(card, f"demo: run_demo({DEMO_EVENTS}) on the card in {wall:.2f} s, "
+              f"K1 launches {k1} = the manifests' block steps")
+    return cfg, k1, flags
+
+
+def phase_dashboards(card: str, cfg, server, port: int) -> None:
+    """Phase 14 (c) up to /score: the UI, /data/, HEAD, traversal, the
+    notebook routes and a kernel session; no bank is built."""
+    from onix_torch.oa.engine import oa_dir
+    from onix_torch.oa.notebooks import code_cells
+    from onix_torch.oa.serve import UI_ROOT
+    for page in UI_PAGES:
+        status, _, body = http_raw(port, "GET", page)
+        rel = "index.html" if page == "/" else page.lstrip("/")
+        if status != 200 or body != (UI_ROOT / rel).read_bytes():
+            raise AssertionError(f"dashboards: GET {page} answered {status}"
+                                 " or not the UI file")
+    for t in ("flow", "dns", "proxy"):
+        day = oa_dir(cfg, t, "2016-07-08")
+        for rel, path in ((f"/data/{t}/dates.json", day.parent / "dates.json"),
+                          (f"/data/{t}/20160708/suspicious.json",
+                           day / "suspicious.json")):
+            status, _, body = http_raw(port, "GET", rel)
+            if status != 200 or body != path.read_bytes():
+                raise AssertionError(f"dashboards: GET {rel} answered "
+                                     f"{status} or not the file on disk")
+    status, headers, body = http_raw(port, "HEAD", "/flow/suspicious.html")
+    size = (UI_ROOT / "flow" / "suspicious.html").stat().st_size
+    if status != 200 or int(headers["Content-Length"]) != size or body:
+        raise AssertionError(f"dashboards: HEAD answered {status}")
+    for bad in ("/data/../../etc/passwd", "/../pyproject.toml"):
+        status, _, _ = http_raw(port, "GET", bad)
+        if status not in (403, 404):
+            raise AssertionError(f"dashboards: GET {bad} answered {status}")
+    nb_path = (pathlib.Path(cfg.oa.data_dir) / "notebooks"
+               / "flow_threat_investigation.ipynb")
+    status, _, body = http_raw(port, "GET", "/notebooks/flow.json")
+    if status != 200 or json.loads(body) != json.loads(nb_path.read_text()):
+        raise AssertionError(f"notebooks: GET flow.json answered {status}")
+    render, execute = notebook_stack()
+    status, _, body = http_raw(port, "GET", "/notebooks/flow.html")
+    if (status, render) not in ((200, True), (501, False)) or (
+            status == 501 and b"pip install nbconvert nbclient" not in body):
+        raise AssertionError(f"notebooks: GET flow.html answered {status} "
+                             f"with the stack's renderer present: {render}")
+    run_status, _, body = http_raw(
+        port, "POST", "/notebooks/run",
+        json.dumps({"datatype": "flow", "date": "2016-07-08"}).encode(),
+        {"Content-Type": "application/json"})
+    if (run_status, execute) not in ((200, True), (501, False)) or (
+            run_status == 501
+            and b"pip install nbconvert nbclient" not in body):
+        raise AssertionError(f"notebooks: POST /notebooks/run answered "
+                             f"{run_status} with the stack present: "
+                             f"{execute}")
+    say(card, f"notebooks: /notebooks/flow.html answered {status}, "
+              f"POST /notebooks/run {run_status} ("
+              + ("the Jupyter stack is installed" if execute else
+                 "no Jupyter stack here: the reference's 501 guidance")
+              + ")")
+    session, _ = http_json(port, "POST", "/notebooks/kernel",
+                           {"action": "start", "date": "2016-07-08"})
+    sid = session["session"]
+    rows = sum(1 for _ in (oa_dir(cfg, "flow", "2016-07-08")
+                           / "suspicious.csv").open()) - 1
+    t0 = time.perf_counter()
+    out, _ = http_json(port, "POST", "/notebooks/kernel/exec",
+                       {"session": sid, "code": code_cells(nb_path)[0]})
+    cell_s = time.perf_counter() - t0
+    probe, _ = http_json(port, "POST", "/notebooks/kernel/exec", {
+        "session": sid,
+        "code": "import sys\n(len(results), 'torch' in sys.modules)"})
+    stopped, _ = http_json(port, "POST", "/notebooks/kernel",
+                           {"action": "stop", "session": sid})
+    if not (out["ok"] and probe["ok"]
+            and probe["result"] == f"({rows}, False)" and stopped["ok"]):
+        raise AssertionError(f"kernel: load cell {out}, probe {probe}")
+    say(card, f"kernel: the flow template's load cell read {rows} rows in "
+              f"{cell_s:.2f} s in a kernel session without torch; "
+              f"{out['stdout'].strip()}")
+    if server.peek_bank_service() is not None:
+        raise AssertionError("dashboards: a bank was built before /score")
+
+
+def phase_analyst(card: str, root: pathlib.Path):
+    """Phase 14: the analyst side on the card. (a) setup twice, (b) the
+    demo, (c) the served dashboards and K2 through /score, (d) label ->
+    /feedback -> re-score -> oa, (e) oa at phase 5's size, (f) the demo
+    on the sessions generator. Returns (K1 launches, K2 launches)."""
+    import pandas as pd
+    import torch
+
+    from onix_torch import cli
+    from onix_torch.checkpoint import load_model
+    from onix_torch.config import load_config
+    from onix_torch.feedback.filter import filter_from_csv
+    from onix_torch.models import fused_serve, sample_count
+    from onix_torch.oa.engine import oa_dir
+    from onix_torch.oa.serve import serve_background
+    from onix_torch.setup_cmd import run_demo
+    from onix_torch.store import (Store, feedback_path, model_name,
+                                  results_path)
+    t_phase = time.perf_counter()
+    cfg, k1, flags = phase_demo(card, root / "demo")
+    date, tenant = "2016-07-08", model_name("flow", "2016-07-08")
+    table = Store(cfg.store.root).read("flow", date)
+    d_all, w_all, hour, bundle = day_requests(table, cfg.pipeline.dupfactor)
+    windows = [("am", d_all[hour < 12], w_all[hour < 12]),
+               ("pm", d_all[hour >= 12], w_all[hour >= 12])]
+    tol, m = cfg.pipeline.tol, cfg.pipeline.max_results
+    dev = "cuda"
+
+    def body(reqs):
+        return {"requests": [{"tenant": tenant, "window": win,
+                              "doc_ids": d.tolist(), "word_ids": w.tolist()}
+                             for win, d, w in reqs]}
+
+    torch.cuda.synchronize()
+    fused_serve.launches = 0
+    t0 = time.perf_counter()
+    server, port = serve_background(cfg, device="cuda")
+    try:
+        phase_dashboards(card, cfg, server, port)
+        say(card, f"dashboards: pages, /data/, HEAD, traversal, notebooks "
+                  f"and a kernel session in {time.perf_counter() - t0:.2f} s"
+                  ", no bank built")
+        saved = load_model(cfg.serving.models_dir, tenant)
+        th = torch.from_numpy(saved.arrays["theta"]).to(dev)
+        ph = torch.from_numpy(saved.arrays["phi_wk"]).to(dev)
+
+        def want(d, w, filt=None):
+            return fused_serve.fused_call_plain(
+                (th, ph, torch.from_numpy(d).to(dev),
+                 torch.from_numpy(w).to(dev)),
+                torch.ones(len(d), device=dev), None, None, filt, tol,
+                mode="dot", max_results=m)
+
+        out, wall = http_json(port, "POST", "/score", body(windows))
+        service = server.peek_bank_service()
+        if fused_serve.launches != 1 or service.bank.dispatches != 1:
+            raise AssertionError(f"/score: K2 launched "
+                                 f"{fused_serve.launches} times for "
+                                 f"{service.bank.dispatches} waves, want 1")
+        for (win, d, w), res in zip(windows, out["results"]):
+            check_winners(res, want(d, w), f"demo {win}")
+        say(card, f"dashboards: /score of the demo's flow tenant, "
+                  f"{len(d_all)} events in 2 windows: one K2 launch, winners "
+                  f"equal the plain version's, wall {wall:.3f} s")
+
+        # (d) label three rows by rank, then one more benign pair by POST.
+        sus = pd.read_csv(oa_dir(cfg, "flow", date) / "suspicious.csv")
+        labelled = [(str(r.ip), str(r.word)) for r in sus.iloc[:3]
+                    .itertuples()]
+        port_cli(card, ["label", date, "flow", "1", "2", "3", "--label", "3",
+                        "--device", "cuda", *flags])
+        am = out["results"][0]
+        _, d_am, w_am = windows[0]
+        for i in am["indices"]:
+            pair = (int(d_am[i]), int(w_am[i]))
+            named = (str(bundle.doc_keys[pair[0]]),
+                     str(bundle.vocab.words[pair[1]]))
+            if named not in labelled:
+                break
+        labelled.append(named)
+        epoch0 = service.bank.epoch(tenant)
+        fb, _ = http_json(port, "POST", "/feedback", {
+            "datatype": "flow", "date": date, "rows": [{
+                "ip": named[0], "word": named[1], "label": 3,
+                "doc_id": pair[0], "word_id": pair[1]}]})
+        if not (fb["ok"] and fb["model_epoch"] > epoch0):
+            raise AssertionError(f"/feedback did not move the epoch: {fb}")
+        again, _ = http_json(port, "POST", "/score", body(windows[:1]))
+        res = again["results"][0]
+        alive = {(int(d_am[i]), int(w_am[i])) for i in res["indices"]
+                 if i >= 0}
+        filt = filter_from_csv(feedback_path(cfg.store.feedback_dir, "flow",
+                                             date),
+                               cfg.feedback.boost_scale).tables(device=dev)
+        if res["cached"] or pair in alive:
+            raise AssertionError("/feedback: the benign pair was served")
+        check_winners(res, want(d_am, w_am, filt), "am after feedback")
+        say(card, f"feedback: label ranks 1-3 by the CLI, one pair by POST: "
+                  f"epoch {epoch0} -> {fb['model_epoch']}, the pair gone "
+                  f"from the next /score, winners equal the plain version's"
+                  f" under the filter")
+    finally:
+        server.shutdown()
+        server.server_close()
+    torch.cuda.synchronize()
+    k2 = fused_serve.launches
+    if not (k2 == service.bank.dispatches == 2):
+        raise AssertionError(f"dashboards: K2 launched {k2} times for "
+                             f"{service.bank.dispatches} waves, want 2")
+
+    # Re-score the day: the four benign rows enter the corpus x dupfactor.
+    res_csv = results_path(cfg.store.results_dir, "flow", date)
+    before = pd.read_csv(res_csv)
+    sample_count.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["score", date, "flow", "--device", "cuda", *flags])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"re-score exited {rc}")
+    man = json.loads(res_csv.with_suffix(".manifest.json").read_text())
+    if man["n_feedback_tokens"] != cfg.pipeline.dupfactor * 4:
+        raise AssertionError(f"re-score: n_feedback_tokens "
+                             f"{man['n_feedback_tokens']}, want "
+                             f"{cfg.pipeline.dupfactor} x 4")
+    steps = cfg.lda.n_sweeps * math.ceil(man["n_tokens"]
+                                         / cfg.lda.block_size)
+    check_launches("re-score K1", sample_count.launches, steps)
+    k1 += sample_count.launches
+    after = pd.read_csv(res_csv)
+
+    def worst(df, ip, word):
+        hit = df[(df["ip"].astype(str) == ip)
+                 & (df["word"].astype(str) == word)]["score"]
+        return float(hit.min()) if len(hit) else None
+    higher = left = seen = 0
+    for ip, word in labelled:
+        s0, s1 = worst(before, ip, word), worst(after, ip, word)
+        if s0 is None:
+            continue
+        seen += 1
+        left += s1 is None
+        higher += s1 is not None and s1 > s0
+    if not higher + left:
+        raise AssertionError("re-score: no labelled pair scored higher or "
+                             "left the results")
+    say(card, f"re-score: {man['n_feedback_tokens']} feedback tokens, K1 "
+              f"launches {sample_count.launches}, wall {wall:.2f} s; of the "
+              f"{seen} labelled pairs in the results, {higher} scored "
+              f"higher and {left} left them")
+    dates = oa_dir(cfg, "flow", date).parent / "dates.json"
+    dates0 = dates.read_bytes()
+    if cli.main(["oa", date, "flow", "--device", "cuda", *flags]) != 0 \
+            or dates.read_bytes() != dates0:
+        raise AssertionError("oa after the re-score failed or moved "
+                             "dates.json")
+
+    # (e) oa on phase 5's day, at pipeline.max_results.
+    day_root = root / "day"
+    t0 = time.perf_counter()
+    if cli.main(["oa", date, "flow", "-s", f"store.root={day_root}"]) != 0:
+        raise AssertionError("oa on phase 5's day failed")
+    wall = time.perf_counter() - t0
+    day_cfg = load_config(None, [f"store.root={day_root}"])
+    n_rows = len(pd.read_csv(oa_dir(day_cfg, "flow", date)
+                             / "suspicious.csv"))
+    if n_rows != len(pd.read_csv(results_path(day_cfg.store.results_dir,
+                                              "flow", date))):
+        raise AssertionError("oa on phase 5's day dropped rows")
+    say(card, f"oa: phase 5's day (10^6 events), {n_rows} results "
+              f"(pipeline.max_results {day_cfg.pipeline.max_results}): "
+              f"run_oa wall {wall:.3f} s")
+
+    # (f) the demo on the sessions generator, in a store of its own.
+    s_cfg = load_config(None, [f"store.root={root / 'demo_sessions'}"])
+    sample_count.launches = 0
+    t0 = time.perf_counter()
+    if run_demo(s_cfg, n_events=DEMO_EVENTS, generator="sessions",
+                device="cuda") != 0:
+        raise AssertionError("the sessions demo failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_launches("sessions demo K1", sample_count.launches,
+                   demo_k1_want(s_cfg, "sessions demo"))
+    k1 += sample_count.launches
+    for t in ("flow", "dns", "proxy"):
+        check_oa_day(s_cfg, t, DEMO_EVENTS)
+    marker = (root / "demo_sessions" / ".demo_generator").read_text()
+    try:
+        run_demo(s_cfg, n_events=DEMO_EVENTS, generator="mixture",
+                 device="cuda")
+    except ValueError as e:
+        if "already holds a demo day" not in str(e):
+            raise
+    else:
+        raise AssertionError("a mixture demo over a sessions store ran")
+    if marker != "sessions\n":
+        raise AssertionError(f"sessions demo marker reads {marker!r}")
+    say(card, f"demo --generator sessions: {wall:.2f} s, K1 launches "
+              f"{sample_count.launches}; marker 'sessions'; a mixture "
+              f"re-run refused")
+    say(card, f"phase 14 wall {time.perf_counter() - t_phase:.1f} s")
+    return k1, k2
+
+
 def main() -> int:
     try:
         import torch
@@ -4612,6 +5066,12 @@ def main() -> int:
         launches["fused_serve"] += k2
         no_fallback("phase 13")
         say(card, f"phase 13 passed in {time.perf_counter() - t13:.1f} s")
+        t14 = time.perf_counter()
+        k1, k2 = phase_analyst(card, root)
+        launches["sample_count"] += k1
+        launches["fused_serve"] += k2
+        no_fallback("phase 14")
+        say(card, f"phase 14 passed in {time.perf_counter() - t14:.1f} s")
     for name, row in rows.items():
         row["launches"] = launches[name]
     say(card, f"all phases passed in {time.perf_counter() - t0:.1f} s")

@@ -18,31 +18,47 @@
         [--epochs E] [--superstep S] [--prefetch-depth K]
         [--prefetch-mode auto|thread|process] [--fault-plan PLAN]
         [-c CONFIG] [-s KEY.PATH=VALUE ...] [--device cuda|cpu]
+    python -m onix_torch.cli oa <date> <flow|dns|proxy> [-c CONFIG]
+        [-s KEY.PATH=VALUE ...] [--device cuda|cpu]
+    python -m onix_torch.cli label <date> <flow|dns|proxy> RANK...
+        --label 1|2|3 [-c CONFIG] [-s KEY.PATH=VALUE ...]
+        [--device cuda|cpu]
+    python -m onix_torch.cli setup [-c CONFIG] [-s KEY.PATH=VALUE ...]
+        [--device cuda|cpu]
+    python -m onix_torch.cli demo [--events N] [--generator
+        mixture|sessions] [--serve] [--port P] [-c CONFIG]
+        [-s KEY.PATH=VALUE ...] [--device cuda|cpu]
 
-The `onix config`, `onix score`, `onix serve`, `onix ingest`,
-`onix watch` and `onix stream` subcommands of `onix/cli.py` on the
-port. `config` prints the resolved configuration, the reference's bytes.
-`ingest` decodes raw files (NetFlow v5/v9/IPFIX/nfcapd, tshark TSV or
-pcap, Bluecoat logs) into the store; `watch` polls a landing directory
-and ingests each file once it has stopped growing (`--procs` > 1 fans
-out over spawned worker processes sharing an on-disk claim ledger,
-`--drain` exits once nothing is left to claim). These three run on the
-host, and `--device` names the card they would have (they raise without
-one unless `--device cpu`), as every command does. `stream` scores each
-file as one minibatch of the online-VB model (`pipelines/streaming.py`)
-and appends its alerts to `<results>/<day>/<type>_streaming.csv`.
-`score -s serving.save_fitted=true` persists the day's model under
-serving.models_dir; `serve` answers `POST /score` from a model
-bank on the device (`onix_torch/oa/serve.py`). The device defaults to
-the card; `--device cpu` runs on the CPU. `--fault-inject N`
-preempts the Gibbs fit after sweep N (ONIX_FAULT_SWEEP), and
-`--fault-plan` installs a chaos plan (`utils/faults.py`); with `-s
-lda.checkpoint_every=E` a rerun resumes from the last checkpoint.
-`--engine sharded` fits with the sharded engine on one device (a 1×1
-`mesh`), `--engine svi` with online variational Bayes over document
-minibatches; `-s lda.sampler_form=sparse` (or ONIX_SAMPLER_FORM=sparse)
-runs either Gibbs engine with the sparse sampler. `--fault-inject` is
-wired to the gibbs engine only, as in the reference.
+Every subcommand of `onix/cli.py` on the port. `config` prints the
+resolved configuration, the reference's bytes. `ingest` decodes raw
+files (NetFlow v5/v9/IPFIX/nfcapd, tshark TSV or pcap, Bluecoat logs)
+into the store; `watch` polls a landing directory and ingests each file
+once it has stopped growing (`--procs` > 1 fans out over spawned worker
+processes sharing an on-disk claim ledger, `--drain` exits once nothing
+is left to claim). `oa` enriches a scored day into the files the
+dashboards read, `label` writes feedback by dashboard rank, and `setup`
+lays out the store and installs the notebook templates. These six run
+on the host, and `--device` names the card they would have (they raise
+without one unless `--device cpu`), as every command does. `stream`
+scores each file as one minibatch of the online-VB model
+(`pipelines/streaming.py`) and appends its alerts to
+`<results>/<day>/<type>_streaming.csv`. `score -s
+serving.save_fitted=true` persists the day's model under
+serving.models_dir; `serve` serves the analyst dashboards, the OA data
+at `/data/` and the hosted notebooks, takes labels at `/feedback`, and
+answers `POST /score` from a model bank on the device
+(`onix_torch/oa/serve.py`). `demo` synthesizes the 2016-07-08 day of
+each datatype, scores it on the device, runs `oa`, and with `--serve`
+serves the dashboards. The device defaults to the card; `--device cpu`
+runs on the CPU. `--fault-inject N` preempts the Gibbs fit after sweep N
+(ONIX_FAULT_SWEEP), and `--fault-plan` installs a chaos plan
+(`utils/faults.py`); with `-s lda.checkpoint_every=E` a rerun resumes
+from the last checkpoint. `--engine sharded` fits with the sharded
+engine on one device (a 1×1 `mesh`), `--engine svi` with online
+variational Bayes over document minibatches; `-s
+lda.sampler_form=sparse` (or ONIX_SAMPLER_FORM=sparse) runs either Gibbs
+engine with the sparse sampler. `--fault-inject` is wired to the gibbs
+engine only, as in the reference.
 """
 
 from __future__ import annotations
@@ -144,6 +160,41 @@ def build_parser() -> argparse.ArgumentParser:
     p_stream.add_argument("--fault-plan", default=None, metavar="PLAN",
                           help="chaos drill: declarative fault plan, e.g. "
                                "'stream:batch@3=raise'")
+    p_oa = sub.add_parser(
+        "oa", help="operational analytics: enrich scored results for the UI")
+    _add_common(p_oa)
+    p_oa.add_argument("date", help="day to process, YYYY-MM-DD")
+    p_oa.add_argument("datatype", choices=("flow", "dns", "proxy"))
+    p_label = sub.add_parser(
+        "label", help="label OA results by rank (headless analyst feedback; "
+                      "the dashboard Save button does the same via POST)")
+    _add_common(p_label)
+    p_label.add_argument("date", help="day, YYYY-MM-DD")
+    p_label.add_argument("datatype", choices=("flow", "dns", "proxy"))
+    p_label.add_argument("ranks", type=int, nargs="+",
+                         help="dashboard rank numbers to label")
+    p_label.add_argument("--label", type=int, required=True,
+                         choices=(1, 2, 3),
+                         help="1 high threat, 2 medium, 3 benign (only "
+                              "benign rows bias the next model run)")
+    p_setup = sub.add_parser(
+        "setup", help="create the store layout, archive the config and "
+                      "install the notebook templates (idempotent)")
+    _add_common(p_setup)
+    p_demo = sub.add_parser(
+        "demo", help="one-command end-to-end demo: synthesize the "
+                     "2016-07-08 day, ingest, score, enrich, serve")
+    _add_common(p_demo)
+    p_demo.add_argument("--events", type=int, default=20000,
+                        help="synthetic events per datatype")
+    p_demo.add_argument("--generator", choices=("mixture", "sessions"),
+                        default="mixture",
+                        help="telemetry source: role-mixture synth or "
+                             "the independent session/state-machine "
+                             "generator")
+    p_demo.add_argument("--serve", action="store_true",
+                        help="serve the dashboards when done")
+    p_demo.add_argument("--port", type=int, default=8889)
     return parser
 
 
@@ -155,7 +206,8 @@ def main(argv: list[str] | None = None) -> int:
     # so a drill's flight record lands under <store.root>/telemetry.
     from onix_torch.utils import telemetry
     telemetry.apply_config(cfg.telemetry)
-    if args.command in ("config", "ingest", "watch"):
+    if args.command in ("config", "ingest", "watch", "oa", "label",
+                        "setup"):
         # Host work: the device is named, and refused without a card,
         # but never touched.
         from onix_torch.device import resolve_device
@@ -192,6 +244,23 @@ def main(argv: list[str] | None = None) -> int:
         from onix_torch.oa.serve import run_serve
         return run_serve(cfg, port=args.port, host=args.host,
                          device=args.device)
+    if args.command == "oa":
+        from onix_torch.oa.engine import run_oa
+        return run_oa(cfg, args.date, args.datatype)
+    if args.command == "label":
+        from onix_torch.oa.feedback import label_by_rank
+        path = label_by_rank(cfg, args.datatype, args.date, args.ranks,
+                             args.label)
+        print(f"onix label: {len(args.ranks)} rows -> {path}")
+        return 0
+    if args.command == "setup":
+        from onix_torch.setup_cmd import run_setup
+        return run_setup(cfg)
+    if args.command == "demo":
+        from onix_torch.setup_cmd import run_demo
+        return run_demo(cfg, n_events=args.events, serve=args.serve,
+                        port=args.port, generator=args.generator,
+                        device=args.device)
     cfg.pipeline.date = args.date
     cfg.pipeline.datatype = args.datatype
     if args.tol is not None:

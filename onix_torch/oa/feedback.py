@@ -1,6 +1,7 @@
 """Analyst feedback capture — the write side of the noise-filter loop;
-a copy of `append_feedback` (with its lock and column checks) from
-`onix/oa/feedback.py`. `POST /feedback` on `onix_torch serve` writes
+a copy of `onix/oa/feedback.py`: `append_feedback` (with its lock and
+column checks) and `label_by_rank`. `POST /feedback` on `onix_torch
+serve`, `onix_torch label` and the hosted notebooks write
 the CSV that `pipelines/run.load_feedback` and
 `feedback/filter.filter_from_csv` read: columns (ip, word, label) with
 the reference severity scale 1/2 = threat, 3 = benign, plus the
@@ -133,3 +134,22 @@ def append_feedback(cfg: OnixConfig, datatype: str, date: str,
         rows.to_csv(tmp, index=False)
         tmp.replace(path)
     return path
+
+
+def label_by_rank(cfg: OnixConfig, datatype: str, date: str,
+                  ranks: list[int], label: int) -> pathlib.Path:
+    """Label OA results rows by their dashboard rank (1-based) — the
+    `onix label` CLI path for headless analysts."""
+    from onix_torch.oa.engine import oa_dir
+    sus = oa_dir(cfg, datatype, date) / "suspicious.csv"
+    if not sus.exists():
+        raise FileNotFoundError(
+            f"no OA output at {sus} — run `onix oa {date} {datatype}` first")
+    df = pd.read_csv(sus)
+    sel = df[df["rank"].isin(ranks)]
+    if len(sel) != len(set(ranks)):
+        known = set(df["rank"].tolist())
+        raise ValueError(f"unknown ranks: {sorted(set(ranks) - known)}")
+    rows = sel[["ip", "word", "rank", "score"]].copy()
+    rows["label"] = label
+    return append_feedback(cfg, datatype, date, rows)

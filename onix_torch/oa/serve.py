@@ -1,7 +1,18 @@
-"""The serving half of the HTTP server — the port of `onix/oa/serve.py`.
+"""Dashboard web server — the port of `onix/oa/serve.py`.
 
-A stdlib threading HTTP server with the reference's serving routes:
+A stdlib threading HTTP server with the reference's routes:
 
+- The analyst dashboards: the static UI under `onix_torch/oa/ui/` (a
+  byte-for-byte copy of the reference's), and the OA data dir mounted at
+  `/data/`. GET and HEAD share one root mapping, so no path resolves
+  outside those two roots.
+- The hosted notebooks: `GET /notebooks/<datatype>.json` (the installed
+  template's source) and `.html` (rendered), `POST /notebooks/run`
+  (executed in a fresh kernel; both answer 501 with install guidance
+  when the Jupyter stack is absent), `POST /notebooks/save`, and the
+  persistent kernel sessions of `oa/kernel.py` at
+  `POST /notebooks/kernel` and `/notebooks/kernel/exec`. Saving and
+  running cells are loopback-only.
 - `POST /score`: mixed-tenant request batches scored through the
   device-resident model bank (`serving/model_bank.py`), one K2 launch
   per wave, with per-(tenant, window) winner caching. Same body,
@@ -13,10 +24,10 @@ A stdlib threading HTTP server with the reference's serving routes:
   service lock, so the next `/score` of that tenant is re-scored.
 - `GET /bank/stats` and `GET /metrics` (Prometheus text).
 
-The dashboards, the data mount and the hosted notebooks of the
-reference answer 501: they are queued in ROADMAP.md (queue 1, item
-19). The bank service is built on the first `/score` on the server's
-torch device (default the card; there is no fallback). With
+The bank service is built on the first `/score` on the server's torch
+device (default the card; there is no fallback): the dashboards, the
+data mount, the notebooks and `/feedback` never build it, so only
+`/score` puts tensors on the device. With
 `serving.replicas` N > 1 it is N services behind a
 `serving.replicas.ReplicaFront`, every replica's bank on that one
 device: tenants home by crc32, feedback reaches every replica before
@@ -27,8 +38,10 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import pathlib
 import threading
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import SimpleHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import pandas as pd
@@ -38,17 +51,70 @@ from onix_torch.config import OnixConfig
 from onix_torch.device import resolve_device
 from onix_torch.oa.feedback import append_feedback
 
+UI_ROOT = pathlib.Path(__file__).parent / "ui"
 DEFAULT_PORT = 8889             # match the reference's demo port
-_NOT_PORTED = ("the dashboards, the data mount and the notebooks are "
-               "not in the PyTorch port yet; they are queued in "
-               "ROADMAP.md under queue 1, item 19")
 
 
-class ServeHandler(BaseHTTPRequestHandler):
+def _safe_join(root: pathlib.Path, rel: str) -> pathlib.Path | None:
+    """Resolve rel under root; None if it escapes (path traversal)."""
+    target = (root / rel.lstrip("/")).resolve()
+    root = root.resolve()
+    if target == root or root in target.parents:
+        return target
+    return None
+
+
+class ServeHandler(SimpleHTTPRequestHandler):
     cfg: OnixConfig             # set on the subclass by make_server
 
     def log_message(self, fmt, *args):   # quiet by default
         pass
+
+    def _send_file(self, path: pathlib.Path) -> None:
+        if path.is_dir():
+            path = path / "index.html"
+        if not path.is_file():
+            self.send_error(404)
+            return
+        data = path.read_bytes()
+        self.send_response(200)
+        self.send_header("Content-Type", self.guess_type(str(path)))
+        self.send_header("Content-Length", str(len(data)))
+        self.send_header("Cache-Control", "no-store")
+        self.end_headers()
+        self.wfile.write(data)
+
+    def _resolve(self) -> pathlib.Path | None:
+        path = self.path.split("?", 1)[0].split("#", 1)[0]
+        if path.startswith("/data/"):
+            root = pathlib.Path(self.cfg.oa.data_dir)
+            return _safe_join(root, path[len("/data/"):])
+        return _safe_join(UI_ROOT, path)
+
+    def _notebook_or_reject(self, datatype: str) -> pathlib.Path | None:
+        """Resolve a datatype to its installed template, sending the
+        HTTP error itself when it can't — the allowlist (never the
+        path) decides, and the view and run endpoints share it."""
+        from onix_torch.oa.notebooks import DATATYPES
+        if datatype not in DATATYPES:
+            self.send_error(404)
+            return None
+        nb = (pathlib.Path(self.cfg.oa.data_dir) / "notebooks"
+              / f"{datatype}_threat_investigation.ipynb")
+        if not nb.is_file():
+            self.send_error(404, "notebook templates not installed "
+                                 "(run `onix setup`)")
+            return None
+        return nb
+
+    def _send_html(self, html: str, status: int = 200) -> None:
+        data = html.encode()
+        self.send_response(status)
+        self.send_header("Content-Type", "text/html; charset=utf-8")
+        self.send_header("Content-Length", str(len(data)))
+        self.send_header("Cache-Control", "no-store")
+        self.end_headers()
+        self.wfile.write(data)
 
     def do_GET(self):
         path = self.path.split("?", 1)[0].split("#", 1)[0]
@@ -56,10 +122,66 @@ class ServeHandler(BaseHTTPRequestHandler):
             return self._bank_stats()
         if path == "/metrics":
             return self._metrics()
-        self.send_error(501, _NOT_PORTED)
+        # Editable notebook source (the in-dashboard editor's read
+        # path): the installed per-datatype .ipynb as JSON.
+        if path.startswith("/notebooks/") and path.endswith(".json"):
+            nb = self._notebook_or_reject(
+                path[len("/notebooks/"):-len(".json")])
+            if nb is None:
+                return
+            try:
+                self._send_json(200, json.loads(nb.read_text()))
+            except (OSError, json.JSONDecodeError) as e:
+                # A truncated template is an HTTP 500, never a dropped
+                # connection.
+                self.send_error(500, f"installed template unreadable: {e}")
+            return
+        # Hosted notebook view: the installed template rendered
+        # server-side (no outputs; POST /notebooks/run executes it).
+        if path.startswith("/notebooks/") and path.endswith(".html"):
+            nb = self._notebook_or_reject(
+                path[len("/notebooks/"):-len(".html")])
+            if nb is None:
+                return
+            try:
+                from onix_torch.oa.notebooks import render_html
+                html = render_html(nb)
+            except ImportError as e:
+                # nbformat/nbconvert are optional extras: a plain
+                # install must get guidance, not a dropped connection.
+                self.send_error(501, f"notebook rendering needs the "
+                                     f"jupyter stack ({e.name}): pip "
+                                     f"install nbconvert nbclient")
+                return
+            except Exception as e:              # noqa: BLE001 — e.g. a
+                # truncated template: an HTTP 500, never a dropped
+                # connection (same contract as /notebooks/run).
+                self.send_error(500, f"notebook render failed: {e}")
+                return
+            self._send_html(html)
+            return
+        target = self._resolve()
+        if target is None:
+            self.send_error(403)
+            return
+        self._send_file(target)
 
     def do_HEAD(self):
-        self.send_error(501, _NOT_PORTED)
+        # Must mirror do_GET's root mapping — the inherited handler would
+        # serve HEAD from the process cwd, bypassing _safe_join.
+        target = self._resolve()
+        if target is None:
+            self.send_error(403)
+            return
+        if target.is_dir():
+            target = target / "index.html"
+        if not target.is_file():
+            self.send_error(404)
+            return
+        self.send_response(200)
+        self.send_header("Content-Type", self.guess_type(str(target)))
+        self.send_header("Content-Length", str(target.stat().st_size))
+        self.end_headers()
 
     def _reject_cross_site(self) -> bool:
         """CSRF guard for the POST routes: require a same-origin Origin
@@ -83,6 +205,20 @@ class ServeHandler(BaseHTTPRequestHandler):
             self.send_error(403, "unexpected Host header")
             return True
         return False
+
+    def _reject_non_loopback(self) -> bool:
+        """Code-executing endpoints (kernel exec, notebook save) are
+        loopback-only: the cross-site guard accepts IP-literal Hosts so
+        `--host 0.0.0.0` dashboards work across the network, but any
+        network peer could then POST straight to the kernel."""
+        peer = self.client_address[0]
+        if peer.startswith("127.") or peer in ("::1", "localhost"):
+            return False
+        self.send_error(
+            403, "notebook editing/execution is loopback-only — open "
+                 "the dashboard on the server host (ssh -L port "
+                 "forwarding works) to use the editor")
+        return True
 
     def _send_json(self, status: int, obj,
                    headers: dict | None = None) -> None:
@@ -114,9 +250,14 @@ class ServeHandler(BaseHTTPRequestHandler):
             return self._score()
         if path == "/feedback":
             return self._feedback()
-        if path.startswith("/notebooks/"):
-            self.send_error(501, _NOT_PORTED)
-            return
+        if path == "/notebooks/run":
+            return self._run_notebook()
+        if path == "/notebooks/save":
+            return self._save_notebook()
+        if path == "/notebooks/kernel":
+            return self._kernel_control()
+        if path == "/notebooks/kernel/exec":
+            return self._kernel_exec()
         self.send_error(404)
 
     def _feedback(self):
@@ -355,14 +496,162 @@ class ServeHandler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(data)
 
+    # -- hosted notebooks ---------------------------------------------------
+
+    def _run_notebook(self):
+        """Execute the datatype's investigation notebook in a fresh
+        kernel against the live OA data dir and return the rendered
+        HTML. Same cross-site guard as /feedback."""
+        if self._reject_cross_site():
+            return
+        try:
+            body = self._read_json_body()
+            datatype = str(body["datatype"])
+            date = str(body["date"])
+        except (KeyError, TypeError, ValueError, json.JSONDecodeError) as e:
+            self.send_error(400, f"bad request: {e}")
+            return
+        nb = self._notebook_or_reject(datatype)
+        if nb is None:
+            return
+        from onix_torch.oa.notebooks import execute_to_html
+
+        # The kernel is a fresh interpreter: hand it the RESOLVED
+        # config (not a maybe-stale file path) so the notebook reads
+        # the exact data dir this server serves.
+        import tempfile
+        with tempfile.NamedTemporaryFile("w", suffix=".json",
+                                         delete=False) as f:
+            json.dump(self.cfg.to_dict(), f)
+            cfg_path = f.name
+        try:
+            html = execute_to_html(nb, date=date, config_path=cfg_path)
+        except ImportError as e:
+            # notebooks.py imports the jupyter stack inside the call: a
+            # plain install gets guidance, not a dropped connection.
+            self.send_error(501, f"notebook execution needs the jupyter "
+                                 f"stack ({e.name}): pip install "
+                                 f"nbconvert nbclient")
+            return
+        except Exception as e:                  # noqa: BLE001 — kernel spawn
+            self.send_error(500, f"notebook execution failed: {e}")
+            return
+        finally:
+            os.unlink(cfg_path)
+        self._send_html(html)
+
+    def _save_notebook(self):
+        if self._reject_cross_site() or self._reject_non_loopback():
+            return
+        try:
+            body = self._read_json_body()
+            datatype = str(body["datatype"])
+            cells = body["cells"]
+            if not (isinstance(cells, list) and cells):
+                raise ValueError("cells must be a non-empty list")
+            for c in cells:
+                if not isinstance(c, dict):
+                    raise ValueError("each cell must be an object")
+                if c.get("cell_type") not in ("code", "markdown"):
+                    raise ValueError(
+                        f"bad cell_type {c.get('cell_type')!r}")
+                if not isinstance(c.get("source"), str):
+                    raise ValueError("source must be a string")
+        except (KeyError, TypeError, ValueError,
+                json.JSONDecodeError) as e:
+            self.send_error(400, f"bad request: {e}")
+            return
+        nb_path = self._notebook_or_reject(datatype)
+        if nb_path is None:
+            return
+        try:
+            nb = json.loads(nb_path.read_text())
+        except (OSError, json.JSONDecodeError) as e:
+            self.send_error(500, f"installed template unreadable: {e}")
+            return
+        nb["cells"] = [{
+            "cell_type": c["cell_type"],
+            "id": f"onix-{datatype}-{i}",
+            "metadata": {},
+            "source": c["source"].splitlines(keepends=True),
+            **({"outputs": [], "execution_count": None}
+               if c["cell_type"] == "code" else {}),
+        } for i, c in enumerate(cells)]
+        # Unique temp + atomic replace: two tabs saving concurrently
+        # must each publish a complete file.
+        import uuid
+        tmp = nb_path.with_name(f".save-{uuid.uuid4().hex[:8]}.tmp")
+        tmp.write_text(json.dumps(nb, indent=1))
+        tmp.replace(nb_path)
+        self._send_json(200, {"ok": True, "n_cells": len(cells)})
+
+    def _kernel_env(self, date: str) -> tuple[dict, str]:
+        import tempfile
+        fd, cfg_path = tempfile.mkstemp(prefix="onix-kernel-",
+                                        suffix=".json")
+        with os.fdopen(fd, "w") as f:
+            json.dump(self.cfg.to_dict(), f)
+        return {"ONIX_DATE": date, "ONIX_CONFIG": cfg_path}, cfg_path
+
+    def _kernel_control(self):
+        if self._reject_cross_site() or self._reject_non_loopback():
+            return
+        try:
+            body = self._read_json_body()
+            action = str(body.get("action", "start"))
+        except (TypeError, ValueError, json.JSONDecodeError) as e:
+            self.send_error(400, f"bad request: {e}")
+            return
+        km = self.server.kernels
+        if action == "start":
+            date = str(body.get("date", ""))
+            env, cfg_path = self._kernel_env(date)
+            s = km.start(env=env, cleanup_files=[cfg_path])
+            self._send_json(200, {"ok": True, "session": s.id})
+            return
+        if action == "stop":
+            ok = km.stop(str(body.get("session", "")))
+            self._send_json(200, {"ok": ok})
+            return
+        self.send_error(400, f"unknown action {action!r}")
+
+    def _kernel_exec(self):
+        if self._reject_cross_site() or self._reject_non_loopback():
+            return
+        from onix_torch.oa.kernel import KernelDead
+        try:
+            body = self._read_json_body()
+            sid = str(body["session"])
+            code = str(body["code"])
+        except (KeyError, TypeError, ValueError,
+                json.JSONDecodeError) as e:
+            self.send_error(400, f"bad request: {e}")
+            return
+        s = self.server.kernels.get(sid)
+        if s is None:
+            self._send_json(410, {"ok": False,
+                                  "error": "no such kernel session "
+                                           "(start a new one)"})
+            return
+        try:
+            timeout = float(self.cfg.oa.kernel_cell_timeout_s)
+            resp = s.execute(code, timeout=timeout)
+        except KernelDead as e:
+            self.server.kernels.drop(sid)
+            self._send_json(410, {"ok": False, "error": str(e)})
+            return
+        self._send_json(200, resp)
+
 
 class ServeServer(ThreadingHTTPServer):
-    """ThreadingHTTPServer + the lazily built bank service, on one
-    torch device."""
+    """ThreadingHTTPServer + the kernel-session registry and the lazily
+    built bank service, on one torch device."""
 
     def __init__(self, *args, device: torch.device, **kw):
+        from onix_torch.oa.kernel import KernelManager
         super().__init__(*args, **kw)
         self.device = device
+        self.kernels = KernelManager()
         # Guards LAZY CONSTRUCTION of the bank service only: scoring
         # and filter installs serialize on the service's own lock.
         self.bank_lock = threading.Lock()
@@ -381,6 +670,10 @@ class ServeServer(ThreadingHTTPServer):
             if self._bank_service is None:
                 self._bank_service = _make_service(cfg, self.device)
             return self._bank_service
+
+    def server_close(self):
+        self.kernels.close_all()
+        super().server_close()
 
 
 def _make_service(cfg: OnixConfig, device: torch.device):
@@ -477,10 +770,10 @@ def run_serve(cfg: OnixConfig, port: int = DEFAULT_PORT,
               host: str = "127.0.0.1",
               device: str | torch.device = "cuda") -> int:
     server = make_server(cfg, port, host, device)
-    print(f"onix_torch serve: /score, /feedback, /bank/stats and /metrics "
-          f"at http://{host}:{server.server_address[1]}/ on "
-          f"{server.device} (models from {cfg.serving.models_dir})",
-          flush=True)
+    print(f"onix_torch serve: dashboards at "
+          f"http://{host}:{server.server_address[1]}/ (data from "
+          f"{cfg.oa.data_dir}); /score on {server.device} (models from "
+          f"{cfg.serving.models_dir})", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
@@ -494,7 +787,8 @@ def serve_background(cfg: OnixConfig, port: int = 0,
                      host: str = "127.0.0.1",
                      device: str | torch.device = "cuda"
                      ) -> tuple[ServeServer, int]:
-    """Start the server on a daemon thread (tests, chip_smoke.py);
+    """Start the server on a daemon thread (tests, `run_demo`'s callers,
+    chip_smoke.py);
     port 0 picks a free port. Returns (server, bound_port); stop it
     with `server.shutdown(); server.server_close()`."""
     server = make_server(cfg, port, host, device)

@@ -1,7 +1,10 @@
 """The port stands alone and falls back nowhere.
 
 - No module of `onix_torch/`, nor `chip_smoke.py`, imports JAX or the
-  JAX package (an AST scan of every import statement).
+  JAX package (an AST scan of every import statement), nor does the
+  code that the port runs from strings: the notebook templates' cells
+  and the kernel worker's source.
+- The OA modules a notebook kernel loads import no torch.
 - The default device is the card: without one, entry points raise.
 - The command line runs on the CPU when asked to.
 - A CPU tensor takes K1's plain version and counts no kernel launch.
@@ -72,13 +75,70 @@ LIFECYCLE_MODULES = ("onix_torch.pipelines.campaign",
                      "onix_torch.feedback.online")
 
 
+OA_MODULES = ("onix_torch.oa.engine", "onix_torch.oa.components",
+              "onix_torch.oa.repclients", "onix_torch.oa.notebooks",
+              "onix_torch.oa.kernel")
+ANALYST_MODULES = (*OA_MODULES, "onix_torch.oa.feedback",
+                   "onix_torch.oa.serve", "onix_torch.setup_cmd")
+
+
+def _forbidden_imports(source: str) -> list:
+    bad = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module and _forbidden(node.module):
+                bad.append(node.module)
+    return bad
+
+
+def test_code_run_from_strings_imports_neither_jax_nor_onix(tmp_path):
+    # The notebook templates' cells run in a fresh kernel and the kernel
+    # worker's source in a subprocess: the file scan above cannot see
+    # their imports, so parse them here.
+    from onix_torch.oa import kernel, notebooks
+    sources = {"kernel._WORKER_SOURCE": kernel._WORKER_SOURCE}
+    for path in notebooks.write_notebooks(tmp_path):
+        for i, cell in enumerate(notebooks.code_cells(path)):
+            sources[f"{path.name} cell {i}"] = cell
+    assert len(sources) == 1 + 3 * len(notebooks.DATATYPES)
+    for what, source in sources.items():
+        assert _forbidden_imports(source) == [], what
+    port = [n for n, src in sources.items() if "onix_torch." in src]
+    assert len(port) == len(notebooks.DATATYPES)
+
+
+def test_oa_modules_load_no_torch():
+    probe = subprocess.run(
+        [sys.executable, "-c",
+         f"import sys; import {', '.join(OA_MODULES)}; "
+         "print(sorted(m for m in sys.modules "
+         "if m.split('.')[0] in ('jax', 'onix', 'torch')))"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert probe.returncode == 0, probe.stderr[-2000:]
+    assert probe.stdout.strip() == "[]"
+
+
+def test_analyst_modules_load_neither_jax_nor_onix():
+    probe = subprocess.run(
+        [sys.executable, "-c",
+         f"import sys; import {', '.join(ANALYST_MODULES)}; "
+         "print(sorted(m for m in sys.modules "
+         "if m.split('.')[0] in ('jax', 'onix')))"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert probe.returncode == 0, probe.stderr[-2000:]
+    assert probe.stdout.strip() == "[]"
+
+
 def test_port_package_list_is_not_empty():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for must in ("onix_torch/models/lda_gibbs.py",
                  "onix_torch/models/sample_count.py",
                  "onix_torch/pipelines/run.py", "chip_smoke.py",
                  *(m.replace(".", "/") + ".py"
-                   for m in SERVING_MODULES + LIFECYCLE_MODULES)):
+                   for m in SERVING_MODULES + LIFECYCLE_MODULES
+                   + ANALYST_MODULES)):
         assert must in names
 
 
