@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (`onix_torch/`) end to end on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase, one card
+    python3 chip_smoke.py --groups   # the several-card check alone
 
 Phases, each of which raises on failure (the script then exits
 non-zero and prints no result line):
@@ -222,9 +223,37 @@ non-zero and prints no result line):
              5's day at pipeline.max_results: the wall and the rows.
              (f) the demo on the sessions generator in a second store;
              a mixture re-run there is refused.
+15. shards — the sharded engine beyond one position and the host
+             fabric, on phase 5's day at the default config (K 20,
+             block 65,536, 60 sweeps): (a) K1's lane form at the dp 4 x
+             mp 2 shard lanes (8 lanes of 65,536 tokens, local chunk
+             ids) against its plain version: exact; ms a call, plain
+             ms, bound. (b) `onix_torch score --engine sharded -s
+             mesh.dp=4 -s mesh.mp=2` with the mesh laid on the one card
+             (`OneCardMesh`): K1 launches = 60 x the layout's blocks,
+             the count invariants, recall >= 0.5, topic similarity >
+             0.9 to phase 5's fit; async tau=1 at dp 4 within
+             LL_PARITY_BAND of sync at dp 4; ONIX_DP1_FAST=0 at 1x1
+             bit-identical to the fast path. (c) `hostfabric.run_fit`,
+             2 workers x 1 position on the card (worker_env
+             CUDA_VISIBLE_DEVICES=0), gloo: theta, phi_wk and z
+             bit-identical to the in-process dp 2 fit, each worker's K1
+             launches from its result; the SIGKILL drill resumes
+             bit-identical. (d) the refusals one card implies, by
+             message: `score --engine sharded -s mesh.dp=2` and
+             `run_scale(fit_hosts=2)` without worker_env. (e) the
+             phase's wall and the process groups' backend.
+
+`--groups` (a host of 2 or more cards) builds the kernels and runs only
+the shard arm over several cards in one process: a dp 2 x mp 2 mesh
+with its positions on cuda:0..3 (modulo the cards there are) against
+the same mesh laid on cuda:0, on phase 5's day, sync and async tau=1:
+z, theta and phi_wk bit-identical, the ll history within 1e-6
+relative; each fit's wall and K1 launches.
 
 The last lines of standard output are the card's name and power limit,
-a `{"kernels": [...]}` line, and `{"ok": true, "device": {...}}`.
+a `{"kernels": [...]}` line (not in `--groups`), and `{"ok": true,
+"device": {...}}`.
 Without a CUDA device, or run from a directory that holds no
 `onix_torch/`, it exits non-zero before printing any result.
 """
@@ -233,6 +262,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import pathlib
 import re
 import statistics
@@ -4987,7 +5017,453 @@ def phase_analyst(card: str, root: pathlib.Path):
     return k1, k2
 
 
+# -- phase 15 ---------------------------------------------------------------
+
+# (b): the dp x mp mesh laid onto the one card, and the async arm's dp.
+SHARD_MESH = (4, 2)
+SHARD_ASYNC_DP = 4
+# (c): the drill's SIGKILL lands on worker 1 once it reports this sweep;
+# a lease with room for a worker's CUDA start-up.
+FABRIC_KILL = {"host": 1, "after_sweep": 20}
+FABRIC_KW = dict(n_hosts=2, local_devices=1, lease_s=15.0, beat_s=0.5,
+                 collective_deadline_s=120.0, timeout_s=400.0,
+                 device="cuda",
+                 worker_env={0: {"CUDA_VISIBLE_DEVICES": "0"},
+                             1: {"CUDA_VISIBLE_DEVICES": "0"}})
+# The reference's bar for a sharded fit's topics against one device's
+# (tests/test_sharded_gibbs.py:95-106).
+SHARD_SIMILARITY_BAR = 0.9
+
+
+class OneCardMesh:
+    """While active, `make_mesh` lays a mesh that names no `devices` onto
+    the one card (every position cuda:0), so the entry points' own
+    `make_mesh(dp, mp)` runs a dp x mp mesh here."""
+
+    def __enter__(self):
+        from onix_torch.parallel import mesh
+        self.mod, self.real = mesh, mesh.make_mesh
+
+        def make_mesh(dp=None, mp=1, devices=None, device="cuda"):
+            if devices is None and dp is not None:
+                devices = ["cuda:0"] * (dp * mp)
+            return self.real(dp, mp, devices=devices, device=device)
+        mesh.make_mesh = make_mesh
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.make_mesh = self.real
+        return False
+
+
+def card_mesh(dp: int, mp: int = 1):
+    from onix_torch.parallel.mesh import make_mesh
+    return make_mesh(dp, mp, devices=["cuda:0"] * (dp * mp))
+
+
+def topic_similarity(phi_a, phi_b) -> float:
+    """Mean cosine similarity of two [V, K] topic tables' columns after
+    Hungarian matching (the reference's `_topic_alignment_similarity`)."""
+    import numpy as np
+    from scipy.optimize import linear_sum_assignment
+    a = phi_a.T / np.linalg.norm(phi_a.T, axis=1, keepdims=True)
+    b = phi_b.T / np.linalg.norm(phi_b.T, axis=1, keepdims=True)
+    sim = a @ b.T
+    r, c = linear_sum_assignment(-sim)
+    return float(sim[r, c].mean())
+
+
+def check_shard_counts(what: str, state, sc, doc_lengths,
+                       n_tokens: int) -> str:
+    """The count invariants of a shard-arm state on the card: every
+    chain's n_k and n_wk sum to N, nothing is negative, and each local
+    document's n_dk row sums to its length."""
+    import numpy as np
+    import torch
+    n_k, n_wk, n_dk = state.n_k, state.n_wk, state.n_dk
+    rows = torch.as_tensor(np.where(sc.doc_map >= 0,
+                                    doc_lengths[np.maximum(sc.doc_map, 0)],
+                                    0), device=n_dk.device)
+    ok = ((n_k.sum(dim=1) == n_tokens).all()
+          and (n_wk.sum(dim=(0, 2, 3)) == n_tokens).all()
+          and int(n_dk.min()) >= 0 and int(n_wk.min()) >= 0
+          and (n_dk.sum(dim=3) == rows[:, None]).all())
+    if not ok:
+        raise AssertionError(f"{what}: a count invariant is broken")
+    return (f"n_k and n_wk sum to {n_tokens} in each of {n_k.shape[0]} "
+            "chain(s), counts >= 0, n_dk rows = doc lengths")
+
+
+def phase_shard_step(card: str, corpus) -> dict:
+    """(a) K1's lane form at the dp 4 x mp 2 shard lanes of the day: one
+    call steps the 8 positions' first blocks, each lane its own ids
+    (local chunk rows), against its own views of n_dk[p], n_wk chunk m
+    and n_k, v_eta from the global V. From one snapshot it must equal
+    its plain version exactly. Times the call (CUDA events, median of
+    30) and the plain version, with the bound summed over the lanes."""
+    import itertools
+
+    import torch
+
+    from onix_torch.config import LDAConfig
+    from onix_torch.models import sample_count as sc
+    from onix_torch.parallel.sharded_gibbs import ShardedGibbsLDA
+    cfg = LDAConfig()
+    model = ShardedGibbsLDA(cfg, corpus.n_vocab, mesh=card_mesh(*SHARD_MESH))
+    layout = model.prepare(corpus)
+    (docs, words, mask), = model.device_corpus(layout)
+    state = model.init_state(layout)
+    z = state.z.view(-1, *state.z.shape[3:])
+    k, b = cfg.n_topics, docs.shape[-1]
+    kw = dict(alpha=cfg.alpha, eta=cfg.eta, v_eta=corpus.n_vocab * cfg.eta,
+              use_gumbel=True)
+    noise = model.default_noise()
+    snap = (*model.lane_views(state), z)
+
+    def fresh():
+        return [x.clone() for x in snap]
+
+    def step(st, fn=sc.gibbs_block_step_, g=None):
+        fn(st[0], st[1], st[2], st[3][:, 0], g, docs[:, 0], words[:, 0],
+           mask[:, 0], **kw)
+    (draw,) = noise.block(b, k, True)
+    want = fresh()
+    step(want, sc.gibbs_block_step_plain, draw)
+    got = fresh()
+    before = sc.launches
+    step(got, g=draw)
+    torch.cuda.synchronize()
+    if sc.launches - before != 1:
+        raise AssertionError(f"K1 shard lanes: {sc.launches - before} "
+                             "calls, not 1")
+    for name, a, e in zip(("n_dk", "n_wk", "n_k", "z"), got, want):
+        if not torch.equal(a, e):
+            raise AssertionError(f"K1 shard lanes: {name} differs from the "
+                                 f"plain step at {int((a != e).sum())} "
+                                 "places")
+    err = max(float((a.double() - e.double()).abs().max())
+              for a, e in zip(got, want))
+    draws = itertools.cycle([noise.block(b, k, True)[0]
+                             for _ in range(4)])
+    work, plain_work = fresh(), fresh()
+    ms = event_ms(lambda: step(work, g=next(draws)))
+    plain_ms = event_ms(lambda: step(plain_work, sc.gibbs_block_step_plain,
+                                     next(draws)), reps=10)
+    lanes = z.shape[0]
+    nbytes = ops = 0
+    for i in range(lanes):
+        _, _, nb_i, ops_i = step_bound(docs[i, 0], words[i, 0], z[i, 0],
+                                       want[3][i, 0], mask[i, 0], k, True)
+        nbytes += nb_i
+        ops += ops_i
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    real = int((mask[:, 0] > 0).sum())
+    say(card, f"K1 shard lanes dp {SHARD_MESH[0]} x mp {SHARD_MESH[1]} on "
+              f"one card: {lanes} lanes x B={b}, K={k}, Vc="
+              f"{layout.n_vocab_local}, Dl={layout.n_docs_local}, {real} "
+              f"real tokens, Gumbel: one call, z, n_dk, n_wk, n_k equal to "
+              f"plain; call {ms:.5f} ms, plain {plain_ms:.5f} ms (CUDA "
+              f"events, median); bound {bound_ms:.5f} ms by {bound_by} "
+              f"({nbytes} B, {ops} ops)")
+    return {"mesh": list(SHARD_MESH), "lanes": lanes, "B": b, "K": k,
+            "Vc": layout.n_vocab_local, "Dl": layout.n_docs_local, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err, "library_ms": None}
+
+
+def shard_fit(card: str, corpus, mesh, tag: str, **cfg_kw) -> dict:
+    """One direct fit of the day's corpus on `mesh` at the default
+    config (with `cfg_kw`): K1 launches = sweeps x the layout's blocks
+    (one call a block for the mesh's one device group)."""
+    import torch
+
+    from onix_torch.config import LDAConfig
+    from onix_torch.models import sample_count
+    from onix_torch.parallel.sharded_gibbs import ShardedGibbsLDA
+    cfg = LDAConfig(**cfg_kw)
+    model = ShardedGibbsLDA(cfg, corpus.n_vocab, mesh=mesh)
+    torch.cuda.synchronize()
+    sample_count.launches = 0
+    t0 = time.perf_counter()
+    fit = model.fit(corpus)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    nb = fit["sharded_corpus"].doc_blocks.shape[2]
+    check_launches(f"{tag}: K1", sample_count.launches, cfg.n_sweeps * nb)
+    lls = [ll for _, ll in fit["ll_history"]]
+    say(card, f"{tag}: mesh {model.mesh.shape}, {nb} blocks of "
+              f"{fit['sharded_corpus'].doc_blocks.shape[3]} a position, K1 "
+              f"launches {sample_count.launches}; fit {wall:.2f} s; ll "
+              f"{lls[0]:.5f} -> {lls[-1]:.5f}")
+    fit["k1"] = sample_count.launches
+    return fit
+
+
+def phase_shard_fit(card: str, root: pathlib.Path, table, planted, corpus,
+                    phi_1x1) -> int:
+    """(b) `onix_torch score --engine sharded -s mesh.dp=4 -s mesh.mp=2`
+    on the phase-5 day with its mesh on the one card: K1 launches =
+    sweeps x blocks, the count invariants, recall >= the bar and topics
+    similar to phase 5's one-device fit; then async τ=1 at dp 4, its
+    final ll within LL_PARITY_BAND of sync at dp 4; then ONIX_DP1_FAST=0
+    at 1x1, bit-identical to the fast path. Returns the score run's K1
+    launches."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from onix_torch import cli
+    from onix_torch.config import LDAConfig
+    from onix_torch.models import lda_gibbs, sample_count
+    from onix_torch.parallel.sharded_gibbs import ShardedGibbsLDA
+    from onix_torch.store import Store
+    dp, mp = SHARD_MESH
+    tag = f"sharded day dp {dp} x mp {mp}"
+    day = root / "shard_day"
+    Store(day).write("flow", "2016-07-08", table)
+    torch.cuda.synchronize()
+    sample_count.launches = 0
+    t0 = time.perf_counter()
+    with OneCardMesh(), FitStates(ShardedGibbsLDA) as fits:
+        rc = cli.main(["score", "2016-07-08", "flow", "-s",
+                       f"store.root={day}", "--engine", "sharded", "-s",
+                       f"mesh.dp={dp}", "-s", f"mesh.mp={mp}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = sample_count.launches
+    if rc != 0:
+        raise AssertionError(f"{tag}: onix_torch score exited {rc}")
+    (fit, corp), = fits.seen
+    layout = fit["sharded_corpus"]
+    nb = layout.doc_blocks.shape[2]
+    n_sweeps = LDAConfig().n_sweeps
+    check_launches(f"{tag}: K1", k1, n_sweeps * nb)
+    got = day_outputs(day / "results")
+    check_launches(f"{tag}: K1 (manifest)",
+                   got["manifest"]["kernel_launches"]["sample_count"],
+                   n_sweeps * nb)
+    inv = check_shard_counts(tag, fit["state"], layout, corp.doc_lengths(),
+                             corp.n_tokens)
+    res = pd.read_csv(day / "results" / "20160708" / "flow_results.csv")
+    recall = len(set(res["event_idx"]) & set(planted.tolist())) / len(
+        planted)
+    sim = topic_similarity(phi_1x1, fit["phi_wk"])
+    lls = [ll for _, ll in fit["ll_history"]]
+    say(card, f"{tag}: onix_torch score 2016-07-08 flow --engine sharded "
+              f"-s mesh.dp={dp} -s mesh.mp={mp}: {dp * mp} positions on "
+              f"cuda:0, {nb} blocks of {layout.doc_blocks.shape[3]} each, "
+              f"K1 launches {k1} = {n_sweeps} x {nb}; {inv}; wall "
+              f"{wall:.2f} s, stages {json.dumps(stage_walls(got))}; "
+              f"recall {recall:.4f} (bar {RECALL_BAR}); topic similarity "
+              f"to phase 5's one-device fit {sim:.4f} (bar "
+              f"{SHARD_SIMILARITY_BAR}); ll {lls[0]:.5f} -> {lls[-1]:.5f}")
+    if recall < RECALL_BAR or sim <= SHARD_SIMILARITY_BAR:
+        raise AssertionError(f"{tag}: recall {recall}, similarity {sim}")
+
+    sync = shard_fit(card, corpus, card_mesh(SHARD_ASYNC_DP),
+                     f"sync dp {SHARD_ASYNC_DP}")
+    asy = shard_fit(card, corpus, card_mesh(SHARD_ASYNC_DP),
+                    f"async τ=1 dp {SHARD_ASYNC_DP}", merge_form="async",
+                    merge_staleness=1)
+    ll_s, ll_a = sync["ll_history"][-1][1], asy["ll_history"][-1][1]
+    gap = abs(ll_a - ll_s) / abs(ll_s)
+    say(card, f"async τ=1 dp {SHARD_ASYNC_DP}: final ll {ll_a:.5f} against "
+              f"sync {ll_s:.5f}, {gap:.5f} relative (band "
+              f"{lda_gibbs.LL_PARITY_BAND})")
+    if gap > lda_gibbs.LL_PARITY_BAND:
+        raise AssertionError(f"async τ=1 out of the ll band: {gap}")
+    del sync, asy
+
+    fast = shard_fit(card, corpus, card_mesh(1), "1x1 fast path")
+    os.environ["ONIX_DP1_FAST"] = "0"
+    try:
+        arm = shard_fit(card, corpus, card_mesh(1),
+                        "1x1 shard arm (ONIX_DP1_FAST=0)")
+    finally:
+        del os.environ["ONIX_DP1_FAST"]
+    same = (torch.equal(arm["state"].z[0, 0], fast["state"].z)
+            and np.array_equal(arm["theta"], fast["theta"])
+            and np.array_equal(arm["phi_wk"], fast["phi_wk"]))
+    say(card, f"ONIX_DP1_FAST=0 at 1x1: z, theta and phi_wk "
+              f"{'bit-identical to' if same else 'DIFFER from'} the fast "
+              "path's")
+    if not same:
+        raise AssertionError("the 1x1 shard arm differs from the fast path")
+    return k1
+
+
+def phase_fabric(card: str, root: pathlib.Path, corpus) -> int:
+    """(c) `hostfabric.run_fit` with 2 workers x 1 position, both on the
+    card through worker_env CUDA_VISIBLE_DEVICES=0, sync: theta, phi_wk
+    and z bit-identical to the in-process make_mesh(dp=2) fit on the
+    card, each worker's K1 launches (from its result) sweeps x blocks;
+    then the SIGKILL drill, resumed bit-identical. Returns the fabric
+    runs' K1 launches (final generations)."""
+    import numpy as np
+
+    from onix_torch.config import LDAConfig
+    from onix_torch.parallel import hostfabric
+    ref = shard_fit(card, corpus, card_mesh(2), "in-process dp 2")
+    # One call a block steps both positions in process; each worker
+    # steps its one position in as many calls.
+    want = ref["k1"]
+    total = 0
+    for label, kill in (("fabric", None), ("fabric drill", FABRIC_KILL)):
+        t0 = time.perf_counter()
+        out = hostfabric.run_fit(corpus, LDAConfig(), root / label,
+                                 kill_plan=kill, **FABRIC_KW)
+        wall = time.perf_counter() - t0
+        m = out["manifest"]
+        same = (np.array_equal(out["theta"], ref["theta"])
+                and np.array_equal(out["phi_wk"], ref["phi_wk"])
+                and np.array_equal(out["arrays"]["z"],
+                                   ref["state"].z.cpu().numpy()))
+        say(card, f"{label}: 2 workers x 1 position on cuda:0 "
+                  f"(CUDA_VISIBLE_DEVICES=0 each), {m['backend']} process "
+                  f"group; wall {wall:.2f} s (generations "
+                  f"{m['walls']['generations_s']}); deaths "
+                  f"{[d['host'] for d in m['deaths']]}, restarts "
+                  f"{m['restarts']}, resume sweeps {m['resume_sweeps']}; "
+                  f"K1 launches a worker {m['k1_launches']}; theta, phi_wk "
+                  f"and z {'bit-identical to' if same else 'DIFFER from'} "
+                  "the in-process dp 2 fit's")
+        if not same:
+            raise AssertionError(f"{label}: differs from the in-process "
+                                 "fit")
+        if kill is None:
+            if m["k1_launches"] != [want, want] or m["deaths"]:
+                raise AssertionError(f"{label}: launches "
+                                     f"{m['k1_launches']}, want {want} each")
+        elif len(m["deaths"]) != 1 or m["restarts"] != 1 \
+                or m["resume_sweeps"][1] < 0:
+            raise AssertionError(f"{label}: deaths {m['deaths']}, resume "
+                                 f"{m['resume_sweeps']}")
+        total += sum(m["k1_launches"])
+    return total
+
+
+def phase_shard_refusals(card: str, root: pathlib.Path) -> None:
+    """(d) the refusals one card implies, asserted by message: a
+    dp=2 mesh from the card's devices alone, and a fabric of two card
+    workers that no worker_env places."""
+    from onix_torch import cli
+    from onix_torch.parallel.hostfabric import FabricError
+    from onix_torch.pipelines.scale import run_scale
+    cases = [
+        ("score --engine sharded -s mesh.dp=2", "needs 2 devices, have 1",
+         lambda: cli.main(["score", "2016-07-08", "flow", "-s",
+                           f"store.root={root / 'day'}", "--engine",
+                           "sharded", "-s", "mesh.dp=2"])),
+        ("run_scale(fit_hosts=2)", "need 2 cards, this host has 1",
+         lambda: run_scale(200_000, n_sweeps=1, fit_hosts=2,
+                           device="cuda")),
+    ]
+    for what, msg, call in cases:
+        try:
+            call()
+        except (ValueError, FabricError) as e:
+            if msg not in str(e):
+                raise AssertionError(f"{what}: refused with {e!r}, not "
+                                     f"{msg!r}") from e
+            say(card, f"refusal: {what} on one card: {e}")
+            continue
+        raise AssertionError(f"{what} ran on one card")
+
+
+def phase_shards(card: str, root: pathlib.Path, table, planted,
+                 phi_1x1) -> tuple:
+    """Phase 15: (a)-(e). Returns (K1's `shards` row, K1 launches)."""
+    from onix_torch.parallel import mesh
+    from onix_torch.pipelines.corpus_build import build_corpus
+    from onix_torch.pipelines.words import flow_words
+    t0 = time.perf_counter()
+    corpus = build_corpus(flow_words(table)).corpus
+    row = phase_shard_step(card, corpus)
+    k1_score = phase_shard_fit(card, root, table, planted, corpus, phi_1x1)
+    k1_fabric = phase_fabric(card, root, corpus)
+    phase_shard_refusals(card, root)
+    row.update(launches_mesh_day=k1_score, launches_fabric=k1_fabric)
+    say(card, f"phase 15: process groups of the fabric on backend "
+              f"{mesh.BACKEND}; wall {time.perf_counter() - t0:.1f} s")
+    return row, k1_score + k1_fabric
+
+
+GROUPS_LL_RTOL = 1e-6
+
+
+def phase_card_groups(card: str) -> None:
+    """`--groups`: the shard arm with its positions on several cards
+    (each card's lanes, views, draws and rings on it; only the int32
+    deltas cross to the first card) against the same mesh on one card:
+    bit-identical fits, sync and async tau=1, on phase 5's day."""
+    import numpy as np
+    import torch
+
+    from onix_torch.config import LDAConfig
+    from onix_torch.models import sample_count
+    from onix_torch.parallel.mesh import make_mesh
+    from onix_torch.parallel.sharded_gibbs import ShardedGibbsLDA
+    from onix_torch.pipelines.corpus_build import build_corpus
+    from onix_torch.pipelines.synth import synth_flow_day
+    from onix_torch.pipelines.words import flow_words
+    n = torch.cuda.device_count()
+    if n < 2:
+        raise AssertionError(f"--groups needs 2 or more cards, have {n}")
+    table, _ = synth_flow_day(DAY_EVENTS, n_hosts=DAY_HOSTS,
+                              n_anomalies=DAY_ANOMALIES, seed=0)
+    corpus = build_corpus(flow_words(table)).corpus
+    spread = [f"cuda:{q % n}" for q in range(4)]
+
+    def sync_all():
+        for i in range(n):
+            torch.cuda.synchronize(i)
+    for kw in ({}, {"merge_form": "async", "merge_staleness": 1}):
+        form = "async tau=1" if kw else "sync"
+        fits = {}
+        for name, devices in ((f"{min(n, 4)} cards", spread),
+                              ("one card", ["cuda:0"] * 4)):
+            model = ShardedGibbsLDA(LDAConfig(**kw), corpus.n_vocab,
+                                    mesh=make_mesh(2, 2, devices=devices))
+            sync_all()
+            before = sample_count.launches
+            t0 = time.perf_counter()
+            fits[name] = model.fit(corpus)
+            sync_all()
+            wall = time.perf_counter() - t0
+            say(card, f"groups: {form} dp 2 x mp 2 on {name} "
+                      f"({len(model._groups)} group(s)): fit {wall:.3f} s, "
+                      f"K1 {sample_count.launches - before}, final ll "
+                      f"{fits[name]['ll_history'][-1][1]:.6f}")
+        a, b = fits.values()
+        for what, x, y in (("z", a["state"].z.cpu(), b["state"].z.cpu()),
+                           ("theta", a["theta"], b["theta"]),
+                           ("phi_wk", a["phi_wk"], b["phi_wk"])):
+            if not np.array_equal(np.asarray(x), np.asarray(y)):
+                raise AssertionError(f"groups {form}: {what} on several "
+                                     "cards differs from one card")
+        # The ll is an f32 sum over each group's [L_g, B] stack, whose
+        # reduction CUDA splits by the stack's shape: it is held to
+        # GROUPS_LL_RTOL, not bit for bit.
+        sweeps = [[s for s, _ in f["ll_history"]] for f in (a, b)]
+        ll_a, ll_b = (np.array([v for _, v in f["ll_history"]])
+                      for f in (a, b))
+        rel = float(np.max(np.abs(ll_a - ll_b) / np.abs(ll_b)))
+        if sweeps[0] != sweeps[1] or rel > GROUPS_LL_RTOL:
+            raise AssertionError(f"groups {form}: ll history differs "
+                                 f"(max relative {rel:.3e})")
+        say(card, f"groups: {form}: several cards bit-identical to one "
+                  f"(z, theta, phi_wk); ll history within {rel:.3e} "
+                  f"relative (bar {GROUPS_LL_RTOL})")
+
+
 def main() -> int:
+    args = sys.argv[1:]
+    if args not in ([], ["--groups"]):
+        print("usage: chip_smoke.py [--groups]", file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -5007,6 +5483,14 @@ def main() -> int:
               f"{torch.cuda.device_count()} device(s)")
     t0 = time.perf_counter()
     phase_build(card)
+    if args:
+        phase_card_groups(card)
+        say(card, f"--groups passed in {time.perf_counter() - t0:.1f} s")
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     phase_kernels(card)
     rows = phase_step(card)
     rows["sample_count"]["chains"] = phase_chain_step(card)
@@ -5072,6 +5556,15 @@ def main() -> int:
         launches["fused_serve"] += k2
         no_fallback("phase 14")
         say(card, f"phase 14 passed in {time.perf_counter() - t14:.1f} s")
+        t15 = time.perf_counter()
+        import numpy as np
+        with np.load(clean["manifest"]["model_saved"]) as saved:
+            phi_1x1 = saved["phi_wk"]
+        shards, k1 = phase_shards(card, root, table, planted, phi_1x1)
+        rows["sample_count"]["shards"] = shards
+        launches["sample_count"] += k1
+        no_fallback("phase 15")
+        say(card, f"phase 15 passed in {time.perf_counter() - t15:.1f} s")
     for name, row in rows.items():
         row["launches"] = launches[name]
     say(card, f"all phases passed in {time.perf_counter() - t0:.1f} s")

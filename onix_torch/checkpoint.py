@@ -1,7 +1,6 @@
-"""Checkpoints — a copy of `onix/checkpoint.py` without its multi-host
-shard layout (slice 5).
+"""Checkpoints — a copy of `onix/checkpoint.py`.
 
-Two halves, numpy and json only:
+Three parts, numpy and json only:
 
 - **Sampler state, for resume on preemption**: `save`, `load_latest`
   and the run identity `fingerprint` (with `_SAMPLING_FIELDS`,
@@ -13,6 +12,10 @@ Two halves, numpy and json only:
   The fit's checkpoints sit in a subdirectory named by the fingerprint;
   the port's fit adds its generator to it (`lda_gibbs.GibbsLDA.fit`),
   so neither package adopts the other's sampler state.
+- **The multi-host shard layout** of the host fabric
+  (`parallel/hostfabric.py`): `TopologyMismatch`, `check_topology`,
+  `claim_topology`, `intact_sweeps`, `latest_common_sweep` and
+  `load_at`, with `TOPOLOGY_FILE`.
 - **Fitted models for the serving bank**: `save_model`, `load_model`,
   `load_models`, `model_meta_epoch`, `list_models`, `model_path`,
   `model_content_digest` and `ModelIntegrityError`. A model either
@@ -136,6 +139,135 @@ def load_latest(ckpt_dir: str | pathlib.Path) -> Checkpoint | None:
             continue        # torn file: fall back to an older checkpoint
         return Checkpoint(arrays=arrays, meta=meta)
     return None
+
+
+# ---------------------------------------------------------------------------
+# Multi-host shard layout (the host fabric, onix_torch/parallel/hostfabric.py).
+#
+# A multi-host fit checkpoints per HOST: ckpt_root/topology.json pins
+# the (n_hosts, local_devices, fingerprint) shape of the run, and each
+# worker writes ordinary `save()` checkpoints of its LOCAL state rows
+# into ckpt_root/<fingerprint>/host-<i>/. The topology file lives
+# OUTSIDE the fingerprint subdir on purpose: a topology change must be
+# refused LOUDLY with a field-by-field diff, not silently miss the
+# fingerprint-keyed directory and cold-start. Resume picks the newest
+# sweep that is intact on EVERY host (a host that crashed mid-save has
+# a newer shard the others lack — that sweep never resumes). The
+# pre-r21 single-process layout (ckpt_dir/<fp>/ckpt-*.npz, no host-*
+# subdirs, no topology.json) is untouched by all of this.
+# ---------------------------------------------------------------------------
+
+TOPOLOGY_FILE = "topology.json"
+
+
+class TopologyMismatch(RuntimeError):
+    """A sharded-fit resume was attempted under a different topology
+    (host count, per-host device count, or fit fingerprint) than the
+    one that wrote the checkpoints. Refused loudly — resuming per-host
+    shards under a different shard assignment would silently corrupt
+    counts. The explicit rebalance path (`--rebalance`) re-writes the
+    topology deliberately via `claim_topology(..., force=True)`."""
+
+
+def check_topology(ckpt_root: str | pathlib.Path, topo: dict) -> dict | None:
+    """Compare `topo` against ckpt_root/topology.json. Returns the
+    stored topology on match (None when no topology is claimed yet);
+    raises TopologyMismatch with a per-field diff otherwise."""
+    path = pathlib.Path(ckpt_root) / TOPOLOGY_FILE
+    if not path.exists():
+        return None
+    stored = json.loads(path.read_text())
+    diffs = [f"{k}: checkpoint has {stored.get(k)!r}, run wants {topo[k]!r}"
+             for k in sorted(topo) if stored.get(k) != topo[k]]
+    if diffs:
+        raise TopologyMismatch(
+            "refusing resume under a changed topology ("
+            + "; ".join(diffs)
+            + ") — restart with the original topology, or re-shard "
+            "deliberately with --rebalance")
+    return stored
+
+
+def claim_topology(ckpt_root: str | pathlib.Path, topo: dict,
+                   force: bool = False) -> dict:
+    """Claim `topo` for ckpt_root: first claim writes topology.json
+    atomically; a matching re-claim is a no-op; a mismatched re-claim
+    raises TopologyMismatch unless `force` (the rebalance path), which
+    re-writes the file stamping the displaced topology as
+    `rebalanced_from` so the shard history stays auditable."""
+    root = pathlib.Path(ckpt_root)
+    root.mkdir(parents=True, exist_ok=True)
+    path = root / TOPOLOGY_FILE
+    try:
+        stored = check_topology(root, topo)
+    except TopologyMismatch:
+        if not force:
+            raise
+        old = json.loads(path.read_text())
+        old.pop("rebalanced_from", None)
+        topo = dict(topo, rebalanced_from=old)
+        stored = None
+    if stored is not None:
+        return stored
+    tmp = path.with_suffix(".json.tmp")
+    tmp.write_text(json.dumps(topo, indent=2))
+    tmp.replace(path)
+    return topo
+
+
+def intact_sweeps(ckpt_dir: str | pathlib.Path) -> list[int]:
+    """Sweeps in `ckpt_dir` with BOTH files of the pair present, sorted.
+    (Presence only — the digest is verified at load time by load_at.)"""
+    d = pathlib.Path(ckpt_dir)
+    if not d.exists():
+        return []
+    return sorted(int(p.stem.split("-")[1]) for p in d.glob("ckpt-*.json")
+                  if p.with_suffix(".npz").exists())
+
+
+def latest_common_sweep(fp_dir: str | pathlib.Path,
+                        n_hosts: int) -> int | None:
+    """Newest sweep checkpointed intact by EVERY host-<i> dir under the
+    fingerprint dir, or None when no sweep is common to all hosts."""
+    common: set[int] | None = None
+    for i in range(n_hosts):
+        sweeps = set(intact_sweeps(pathlib.Path(fp_dir) / f"host-{i}"))
+        common = sweeps if common is None else common & sweeps
+        if not common:
+            return None
+    return max(common) if common else None
+
+
+def load_at(ckpt_dir: str | pathlib.Path, sweep: int) -> Checkpoint | None:
+    """Load exactly `sweep` from `ckpt_dir`, digest-verified; None when
+    the pair is missing, torn, or fails its sha256. Unlike load_latest
+    there is no fallback to an older sweep — multi-host resume must put
+    every shard at the SAME sweep, so the coordinator picks the sweep
+    (latest_common_sweep) and each worker either loads it or refuses."""
+    from onix_torch.utils.obs import counters
+
+    npz_path, json_path = _paths(pathlib.Path(ckpt_dir), sweep)
+    if not (npz_path.exists() and json_path.exists()):
+        return None
+    try:
+        meta = json.loads(json_path.read_text())
+        want = meta.get("npz_sha256")
+        if want is not None:
+            h = hashlib.sha256()
+            with open(npz_path, "rb") as f:
+                for chunk in iter(lambda: f.read(1 << 22), b""):
+                    h.update(chunk)
+            if h.hexdigest() != want:
+                counters.inc("ckpt.digest_mismatch")
+                from onix_torch.utils import telemetry
+                telemetry.RECORDER.dump("ckpt-digest-mismatch",
+                                        extra={"path": str(npz_path)})
+                return None
+        with np.load(npz_path) as z:
+            arrays = {k: z[k] for k in z.files}
+    except (json.JSONDecodeError, OSError, ValueError):
+        return None
+    return Checkpoint(arrays=arrays, meta=meta)
 
 
 # ---------------------------------------------------------------------------

@@ -54,7 +54,8 @@ runs on the CPU. `--fault-inject N` preempts the Gibbs fit after sweep N
 (ONIX_FAULT_SWEEP), and `--fault-plan` installs a chaos plan
 (`utils/faults.py`); with `-s lda.checkpoint_every=E` a rerun resumes
 from the last checkpoint. `--engine sharded` fits with the sharded
-engine on one device (a 1×1 `mesh`), `--engine svi` with online
+engine on the (`mesh.dp`, `mesh.mp`) mesh of the device's type (1×1
+by default), `--engine svi` with online
 variational Bayes over document minibatches; `-s
 lda.sampler_form=sparse` (or ONIX_SAMPLER_FORM=sparse) runs either Gibbs
 engine with the sparse sampler. `--fault-inject` is wired to the gibbs

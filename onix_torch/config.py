@@ -129,13 +129,6 @@ ENV_REGISTRY: dict[str, tuple[str, str]] = {
         "hostfabric worker: jax.distributed coordinator address (set by "
         "the local coordinator for spawned workers; real hosts export it "
         "when launching workers by hand — parallel/hostfabric.py)"),
-    "ONIX_FABRIC_WORKER_PLATFORM": (
-        "jax platform name (cpu, tpu)",
-        "hostfabric coordinator: platform spawned fit workers run on. "
-        "Default cpu (safe anywhere); tpu splits this host's chips "
-        "across workers via TPU_VISIBLE_DEVICES — the coordinator must "
-        "then run under JAX_PLATFORMS=cpu so it holds no chips "
-        "(parallel/hostfabric.py)"),
     "ONIX_FAULT_SWEEP": (
         "int sweep number",
         "legacy one-off fit:sweep preemption hook (pre-r9 chaos drills)"),

@@ -719,14 +719,18 @@ class CheckpointBook:
     sweep resumed from (None for a fresh start) and the walls of the
     load and of each save: the manifest's `checkpoint` entry. Saving
     needs a noise source with `get_state`, resuming one with
-    `set_state`."""
+    `set_state`. `arrays` is the (state -> arrays, arrays -> state)
+    pair of the engine's state layout."""
 
     def __init__(self, checkpoint_dir, fingerprint: str, noise,
-                 checkpoint_every: int, engine: str):
+                 checkpoint_every: int, engine: str,
+                 arrays=None):
         self.dir = pathlib.Path(checkpoint_dir) / fingerprint
         self.fingerprint = fingerprint
         self.noise = noise
         self.engine = engine
+        self.to_arrays, self.from_arrays = arrays or (state_arrays,
+                                                      state_from_arrays)
         self.walls = {"resumed_from": None, "load_s": None, "save_s": []}
         if checkpoint_every > 0 and not hasattr(noise, "get_state"):
             raise ValueError(
@@ -745,14 +749,14 @@ class CheckpointBook:
                 "resuming from a checkpoint needs a noise source with "
                 f"set_state(); {type(self.noise).__name__} has none")
         self.noise.set_state(saved.arrays["rng_state"])
-        state = state_from_arrays(saved.arrays, device)
+        state = self.from_arrays(saved.arrays, device)
         self.walls.update(resumed_from=saved.sweep,
                           load_s=time.perf_counter() - t0)
         return state, saved.sweep + 1
 
     def save(self, state: GibbsState, sweep: int) -> None:
         t0 = time.perf_counter()
-        ckpt.save(self.dir, sweep, state_arrays(state, self.noise),
+        ckpt.save(self.dir, sweep, self.to_arrays(state, self.noise),
                   {"fingerprint": self.fingerprint, "engine": self.engine})
         self.walls["save_s"].append(time.perf_counter() - t0)
 

@@ -10,7 +10,7 @@ index, so padding for the mesh can never perturb a live tenant's bits.
 
 `LANE_ARRAYS`, `lane_pad` and `pad_class_lanes` are copied line for
 line. The port runs one device: `shard_class` is the identity there,
-and a mesh wider than one device raises until slice 5.
+and a mesh wider than one device raises until slice 5b.
 """
 
 from __future__ import annotations
@@ -50,8 +50,8 @@ def shard_class(sc, mesh) -> dict:
     """One shape class's stacked arrays for the fleet refit. On one
     device (no mesh, or a 1×1 mesh) this is the identity — the host
     arrays, which `convert.fleet_class_from_numpy` puts on the device;
-    a mesh of more than one device raises until slice 5."""
+    a mesh of more than one device raises until slice 5b."""
     if mesh is not None and int(np.prod(list(mesh.shape.values()))) > 1:
         raise not_ported(f"a fleet refit sharded over a {mesh.shape} mesh",
-                         "slice 5 (multiple devices and hosts)")
+                         "slice 5b (the collective-free placements)")
     return {name: getattr(sc, name) for name in LANE_ARRAYS}

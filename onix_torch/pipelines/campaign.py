@@ -1,5 +1,5 @@
 """Overlapped multi-datatype campaign orchestrator — the port of
-`onix/pipelines/campaign.py` for one card.
+`onix/pipelines/campaign.py`.
 
 One campaign runs ingest → fit → score → OA over flow, dns and proxy.
 One datatype's host PREPARE stage (synthesize → word build → corpus
@@ -8,12 +8,14 @@ the device, behind a bounded in-order queue. The worker does host work
 only and touches no CUDA tensor; every device stage runs on the driver
 thread.
 
-The fit is the port's sharded engine on a 1×1 mesh over the resolved
-device (`ShardedGibbsLDA`: kernel K1 for every block step), and the
-score stage is `select_suspicious_events` (on the card, "auto" routes
-its table scan to kernel K2). `dp = 0` and `dp = 1` mean the one
-device; `dp > 1` and a multi-host fit (`fit_hosts > 1`) raise until
-slice 5.
+The fit is the port's sharded engine over the resolved device
+(`ShardedGibbsLDA`: kernel K1 for every block step), and the score
+stage is `select_suspicious_events` (on the card, "auto" routes its
+table scan to kernel K2). `dp = 0` and `dp = 1` mean the one device
+(the reference's `dp = 0` takes every visible device); `dp > 1` fits
+over a (dp, 1) mesh of the device's type, and `fit_hosts > 1` in the
+host fabric's worker processes (`parallel/hostfabric.py`, cold fits
+only).
 
 Accounting is overlap-exact (`utils/obs.OccupancyClock`): per-stage,
 per-datatype busy seconds; `prepare_wait` counts CONSUMER-BLOCKED
@@ -39,12 +41,12 @@ import dataclasses
 import json
 import pathlib
 import queue
+import tempfile
 import threading
 import time
 
 import numpy as np
 
-from onix_torch import not_ported
 from onix_torch.checkpoint import SimulatedPreemption
 from onix_torch.config import DATATYPES, LDAConfig
 from onix_torch.device import resolve_device
@@ -225,7 +227,8 @@ def run_campaign(n_events: int, datatypes=DATATYPES, n_hosts: int | None = None,
                  n_chains: int = 1, overlap: bool = True,
                  overlap_depth: int = 1, merge_form: str = "sync",
                  merge_staleness: int = 1, dp: int = 0,
-                 fit_hosts: int = 1, generator: str = "mixture",
+                 fit_hosts: int = 1, rebalance: bool = False,
+                 generator: str = "mixture",
                  resume_dir: str | pathlib.Path | None = None,
                  out_path: str | pathlib.Path | None = None,
                  feedback=None, dupfactor: int = 1000,
@@ -244,7 +247,10 @@ def run_campaign(n_events: int, datatypes=DATATYPES, n_hosts: int | None = None,
     are identical (deterministic in seed) and the accounting delta is
     pure orchestration. `merge_form`/`merge_staleness` select the
     sharded engine's count-merge arm (LDAConfig r14 gate). `dp=0` and
-    `dp=1` fit on the one device.
+    `dp=1` fit on the one device, `dp > 1` over a (dp, 1) mesh;
+    `fit_hosts > 1` runs each datatype's cold fit in that many host
+    fabric workers (`rebalance` re-shards onto the survivors when one
+    dies).
 
     The r19 daily-supervisor hooks (pipelines/daily.py drives these;
     every one defaults off and single-day callers are unchanged):
@@ -272,18 +278,19 @@ def run_campaign(n_events: int, datatypes=DATATYPES, n_hosts: int | None = None,
     `device` is where the fit and the score run: the card by default
     (raises without one); "cpu" only when the caller names it.
     """
-    if dp > 1:
-        raise not_ported(f"a campaign over a dp={dp} mesh",
-                         "slice 5 (multiple devices and hosts)")
-    if fit_hosts > 1:
-        raise not_ported("the multi-host fit fabric (fit_hosts > 1)",
-                         "slice 5 (multiple devices and hosts)")
     dev = resolve_device(device)
     if (model_sink is not None or warm_start) and n_chains != 1:
         raise ValueError(
             "the daily model carry (warm_start/model_sink) is "
             "single-estimate by contract: combine chains upstream "
             "(the model-bank rule) or fit with n_chains=1")
+    if fit_hosts > 1 and warm_start:
+        # The fabric workers have no init_phi surface (a warm prior
+        # would have to be sharded per host and fingerprinted); refuse
+        # loudly instead of silently fitting cold.
+        raise ValueError(
+            "the multi-host fit fabric (fit_hosts > 1) is cold-fit "
+            "only: drop warm_start or fit with fit_hosts=1")
     if generator == "sessions":
         from onix_torch.pipelines.synth2 import SYNTH2_ARRAYS as gen_arrays
     elif generator == "mixture":
@@ -300,7 +307,7 @@ def run_campaign(n_events: int, datatypes=DATATYPES, n_hosts: int | None = None,
     if n_anomalies is None:
         n_anomalies = _default_anomalies(n_events)
 
-    mesh = make_mesh(dp=1, mp=1, device=dev)
+    mesh = make_mesh(dp=max(dp, 1), mp=1, device=dev)
     cfg = LDAConfig(n_topics=n_topics, n_sweeps=n_sweeps,
                     burn_in=max(1, n_sweeps // 2),
                     block_size=1 << 17, seed=seed, n_chains=n_chains,
@@ -477,8 +484,27 @@ def run_campaign(n_events: int, datatypes=DATATYPES, n_hosts: int | None = None,
             else:
                 if warm_start is not None:
                     counters.inc("daily.cold_fits")
-                model = ShardedGibbsLDA(cfg, corpus.n_vocab, mesh=mesh)
-                fit = fit_with_resume(model, corpus, ckpt_dir)
+                if fit_hosts > 1:
+                    # The multi-host fabric: this datatype's fit runs
+                    # in fit_hosts worker processes; the fabric dir
+                    # rides resume_dir so a killed run resumes at the
+                    # last common superstep-boundary shard.
+                    from onix_torch.parallel import hostfabric
+                    fabric_dir = (pathlib.Path(resume_dir) / dt
+                                  / "fit_fabric"
+                                  if resume_dir is not None
+                                  else tempfile.mkdtemp(
+                                      prefix=f"onix-fabric-{dt}-"))
+                    model = None
+                    fit = hostfabric.run_fit(
+                        corpus, cfg, fabric_dir, n_hosts=fit_hosts,
+                        on_death=("rebalance" if rebalance
+                                  else "restart"),
+                        rebalance=rebalance, device=dev)
+                else:
+                    model = ShardedGibbsLDA(cfg, corpus.n_vocab,
+                                            mesh=mesh)
+                    fit = fit_with_resume(model, corpus, ckpt_dir)
         dp1_fast = bool(getattr(model, "dp1_fast", False))
         theta, phi_wk = fit["theta"], fit["phi_wk"]
         if model_sink is not None:

@@ -4,7 +4,9 @@ an own copy of `onix/pipelines/daily.py` over the port's `checkpoint`,
 reference's bytes for the same body (the same `_canonical` and sha256
 stamp), so either package reads the other's ledger. `device` (default
 "cuda", raising without a card) is where every day's campaign runs;
-`dp > 1` and `fit_hosts > 1` raise until slice 5.
+`dp > 1` fits over a mesh of that many devices and `fit_hosts > 1` in
+the host fabric's worker processes (cold fits only: it needs
+`force_cold`).
 
 The r14 campaign orchestrator executes exactly ONE day's
 ingest→fit→score→OA; production runs the pipeline EVERY day. This
@@ -80,7 +82,7 @@ import time
 
 import numpy as np
 
-from onix_torch import checkpoint, not_ported
+from onix_torch import checkpoint
 from onix_torch.config import DATATYPES, DailyConfig
 from onix_torch.device import resolve_device
 from onix_torch.models.lda_gibbs import LL_PARITY_BAND
@@ -345,10 +347,6 @@ def run_daily(n_days: int, root: str | pathlib.Path, *,
     converge to the uninterrupted run's artifacts).
 
     Returns the supervisor manifest (also written to `out_path`)."""
-    if dp > 1 or fit_hosts > 1:
-        raise not_ported(f"a daily chain over dp={dp}, fit_hosts="
-                         f"{fit_hosts}", "slice 5 (multiple devices and "
-                         "hosts)")
     dev = resolve_device(device)
     daily = daily if daily is not None else DailyConfig()
     daily.validate()
@@ -364,6 +362,13 @@ def run_daily(n_days: int, root: str | pathlib.Path, *,
     models_dir = root / "models"
     force_cold = daily.force_cold \
         or os.environ.get("ONIX_DAILY_FORCE_COLD") == "1"
+    if fit_hosts > 1 and not force_cold:
+        # The multi-host fabric is cold-fit only (run_campaign refuses
+        # warm_start); a multi-host chain must opt out of the warm
+        # carry explicitly rather than die on day 2.
+        raise ValueError("fit_hosts > 1 needs force_cold: the fit "
+                         "fabric has no warm-start surface (pass "
+                         "--force-cold / DailyConfig(force_cold=True))")
     edges = _load_edges(root, datatypes)
 
     def feedback_upto(day: int):
@@ -672,8 +677,8 @@ def main(argv: list[str] | None = None) -> int:
                     help="merge windows a peer delta may lag in the "
                          "async arm (0 = the bit-identity arm)")
     ap.add_argument("--fit-hosts", type=int, default=1,
-                    help="fit worker processes (more than 1 waits for "
-                         "slice 5)")
+                    help="fit worker processes (the host fabric; needs "
+                         "--force-cold)")
     ap.add_argument("--generator", default="mixture")
     ap.add_argument("--drift-max", type=float, default=None)
     ap.add_argument("--warm-sweeps", type=int, default=None)

@@ -7,7 +7,7 @@ budget) in which every sweep steps each token block with ONE call of
 kernel K1 for all the class's lanes (K1's lane form), and each tenant's
 table scan through `select_suspicious_events` (kernel K2 on the card
 under "auto"). `device` (default "cuda", raising without a card) is
-where the refit and the scans run; `dp > 1` raises until slice 5. The
+where the refit and the scans run; `dp > 1` raises until slice 5b. The
 manifest's `dispatches` lists every class refit (its lanes, sweeps and
 blocks), from which the K1 calls of a run follow.
 
@@ -247,7 +247,7 @@ def run_fleet(n_days: int, n_tenants: int, root: str | pathlib.Path, *,
     manifest (also written to `out_path`)."""
     if dp > 1:
         raise not_ported(f"a fleet refit over a dp={dp} mesh",
-                         "slice 5 (multiple devices and hosts)")
+                         "slice 5b (the collective-free placements)")
     dev = resolve_device(device)
     daily = daily if daily is not None else DailyConfig()
     daily.validate()

@@ -103,8 +103,8 @@ def run_rehearsal(n_events: int = 100_000, n_sweeps: int = 300,
     """The judged pairing on a synthetic `datatype` day of `n_events`:
     the port's `n_chains`-chain fit on `device` against oracle
     ensembles of `n_oracle_runs` restarts, all at `n_sweeps` sweeps.
-    `engine="sharded"` fits with the sharded engine on the mesh
-    `engine_mesh` (None or (1, 1): one device). `bf16_arm` also scores
+    `engine="sharded"` fits with the sharded engine on the (dp, mp)
+    mesh `engine_mesh` of `device`'s type (None: one device). `bf16_arm` also scores
     the same fit from θ/φ rounded to bf16 and back, against the same
     oracle. Returns the reference's result dict with `jax_*` fields
     named `port_*`; writes it as JSON to `out_path` when given."""

@@ -5,8 +5,8 @@ Read the day's partition from the store, create words, build the corpus
 (applying analyst feedback ×DUPFACTOR), fit the LDA on the device,
 score every raw event, and write the per-day results CSV, the clients
 CSV and a run manifest. The engines: "gibbs" (collapsed Gibbs,
-`models/lda_gibbs.py`), "sharded" (the sharded engine on a 1×1 mesh,
-`parallel/sharded_gibbs.py`) and "svi" (online variational Bayes over
+`models/lda_gibbs.py`), "sharded" (the sharded engine on the
+`mesh` config's mesh, `parallel/sharded_gibbs.py`) and "svi" (online variational Bayes over
 document minibatches, `models/lda_svi.py`). The files keep the
 reference's schema; the manifest adds `device` (the torch device and
 card name) and `kernel_launches` (K1 launches during the fit: 0 for svi
@@ -73,7 +73,9 @@ def fit_engine(cfg: OnixConfig, bundle: CorpusBundle, engine: str,
                device: torch.device) -> dict:
     """Fit theta/phi_wk with the requested engine on the bundle's
     corpus: "gibbs" (`GibbsLDA`) or "sharded" (`ShardedGibbsLDA` on the
-    mesh of `cfg.mesh`, which must be 1×1), each with any
+    (mesh.dp, mesh.mp) mesh of `device`'s type, after
+    `multihost_init` joins the processes that `mesh.coordinator`,
+    `mesh.num_processes` and `mesh.process_id` name), each with any
     `lda.n_chains` (θ [C, D, K] and φ_wk [C, V, K] for C > 1); or "svi"
     (`fit_svi`, one chain)."""
     if engine not in ("gibbs", "sharded") and cfg.lda.n_chains > 1:

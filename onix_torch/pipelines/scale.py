@@ -1,5 +1,5 @@
 """The scale day: a full synthetic telemetry day end to end at 10⁷–10⁸
-events on one card — the port of `onix/pipelines/scale.py`.
+events — the port of `onix/pipelines/scale.py`.
 
 BASELINE.json configs[3] is "1B-row synthetic netflow, 20 topics,
 multi-chip doc-sharded Gibbs"; configs[1]/[2] are the DNS and proxy
@@ -24,8 +24,11 @@ score gathers and the exact bottom-k in PyTorch ops);
 `ONIX_HOST_WORDS=1` selects host word creation, the cross-check arm. A
 trained vocabulary that does not fit the compact key returns the run to
 host words, as in the reference, and the manifest's `words_mode` says
-so. A run of several fit processes
-(`fit_hosts > 1`) raises for slice 5. `generator="sessions"` takes
+so. `fit_hosts > 1` fits in that many host-fabric worker processes
+(`parallel/hostfabric.py`, one card each: a host with fewer cards
+refuses), `rebalance` re-shards onto the survivors when one dies; the
+manifest's `orchestration.fit_fabric` is the fabric's manifest. The
+in-process fit runs on a 1×1 mesh of `device`. `generator="sessions"` takes
 the independent session generator (`synth2.py`) for the day and every
 streamed chunk.
 """
@@ -35,12 +38,12 @@ from __future__ import annotations
 import json
 import os
 import pathlib
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from onix_torch import not_ported
 from onix_torch.config import LDAConfig
 from onix_torch.device import describe, resolve_device
 from onix_torch.models import fused_serve, sample_count, scoring
@@ -112,16 +115,6 @@ def run_scale(n_events: int, n_hosts: int | None = None,
     if not train_events:          # None or 0: train on everything
         train_events = n_events
     train_events = min(train_events, n_events)
-    if fit_hosts > 1:
-        raise not_ported(f"a fit over {fit_hosts} host processes "
-                         "(fit_hosts > 1)",
-                         "slice 5 (multiple devices and hosts)")
-    if rebalance:
-        # The reference reads it only in the host fabric of fit_hosts > 1,
-        # so a port run that took it would ignore it.
-        raise not_ported("the host fabric's rebalance on a host's death "
-                         "(rebalance=True)",
-                         "slice 5 (multiple devices and hosts)")
     # generator="sessions" swaps in the independent session/state-
     # machine generator (synth2.py), whose generative assumptions the
     # model family does not share. Same schema, same pipeline, same
@@ -197,12 +190,38 @@ def run_scale(n_events: int, n_hosts: int | None = None,
     model = ShardedGibbsLDA(cfg, corpus.n_vocab, mesh=mesh)
     saved_model = ckpt.load("model") if ckpt is not None else None
     fit_walls = None
+    fabric_manifest = None
     if saved_model is not None:
         # A prior session already paid for the fit; walls carry ITS
         # cost, not this session's load time.
         theta = saved_model["theta"]
         phi_wk = saved_model["phi_wk"]
         walls["gibbs_fit"] = float(saved_model["wall"])
+    elif fit_hosts > 1:
+        # The multi-host fabric: the fit runs in fit_hosts worker
+        # processes, each owning a dp shard of the corpus and its own
+        # checkpoint shard. The fabric workdir rides resume_dir so a
+        # killed session (or a killed HOST — the fabric absorbs that
+        # itself) resumes from the last superstep boundary common to
+        # all shards.
+        from onix_torch.parallel import hostfabric
+        fabric_dir = (pathlib.Path(resume_dir) / "fit_fabric"
+                      if resume_dir is not None
+                      else tempfile.mkdtemp(prefix="onix-fabric-"))
+        fab = hostfabric.run_fit(
+            corpus, cfg, fabric_dir, n_hosts=fit_hosts,
+            on_death="rebalance" if rebalance else "restart",
+            rebalance=rebalance, device=dev)
+        theta, phi_wk = fab["theta"], fab["phi_wk"]
+        fabric_manifest = fab["manifest"]
+        walls["gibbs_fit"] = time.monotonic() - t
+        if ckpt is not None:
+            ckpt.save("model", theta=np.asarray(theta),
+                      phi_wk=np.asarray(phi_wk),
+                      wall=np.float64(walls["gibbs_fit"]))
+            ckpt.save("meta", elapsed=np.float64(
+                prior_elapsed + time.monotonic() - t_all),
+                sessions=np.int64(resumed_sessions + 1))
     else:
         fit = model.fit(corpus, checkpoint_dir=fit_ckpt_dir)
         theta, phi_wk = fit["theta"], fit["phi_wk"]  # host numpy: synced
@@ -292,6 +311,8 @@ def run_scale(n_events: int, n_hosts: int | None = None,
             "dp1_fast_path": bool(model.dp1_fast),
             "mesh": dict(mesh.shape),
             "fit_hosts": fit_hosts,
+            **({"fit_fabric": fabric_manifest}
+               if fabric_manifest is not None else {}),
             "per_datatype_stage_walls_s": {
                 datatype: {k: round(v, 2) for k, v in walls.items()}},
         },
@@ -694,10 +715,16 @@ def main(argv: list[str] | None = None) -> int:
                     help="merge windows a peer delta may lag in the "
                          "async arm")
     ap.add_argument("--fit-hosts", type=int, default=1,
-                    help="fit worker processes (more than 1: not in the "
-                         "port yet)")
+                    help="fit worker PROCESSES in the multi-host "
+                         "fabric (parallel/hostfabric.py); 1 = the "
+                         "in-process sharded engine. Distinct from "
+                         "--hosts, which is the SYNTHETIC telemetry "
+                         "host population")
     ap.add_argument("--rebalance", action="store_true",
-                    help="multi-host fabric only (not in the port yet)")
+                    help="multi-host fabric only: when a fit host dies, "
+                         "re-shard its corpus onto the survivors behind "
+                         "a deliberate fingerprint bump instead of "
+                         "restarting the same topology")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the run goes (default: cuda; there is no "
                          "fallback)")

@@ -24,7 +24,7 @@ proofs:
 
 Every entry point takes `device` (default the card; nothing picks
 another). A bank over more than one device (`spec.devices > 1`) raises
-for slice 5.
+for slice 5b.
 """
 
 from __future__ import annotations
@@ -71,7 +71,7 @@ class HarnessSpec:
     max_queue_depth: int = 0
     request_deadline_ms: float = 0.0
     # Scale-out: `devices` > 1 (a bank over several devices) raises for
-    # slice 5; `replicas` > 1 stands up N services behind a
+    # slice 5b; `replicas` > 1 stands up N services behind a
     # ReplicaFront on the one device; `prefetch_depth`/`host_capacity`
     # exercise the host-RAM residency tier.
     devices: int = 0
@@ -138,7 +138,7 @@ def build_service(spec: HarnessSpec, models: dict[str, TenantModel],
     if spec.devices > 1:
         raise not_ported(f"a harness bank over {spec.devices} devices "
                          "(spec.devices > 1)",
-                         "slice 5 (multiple devices and hosts)")
+                         "slice 5b (the collective-free placements)")
     dev = resolve_device(device)
     cap = spec.capacity or spec.n_tenants
     tiered = bool(spec.host_capacity or spec.prefetch_depth)

@@ -36,7 +36,7 @@ PyTorch in place of the kernel, so a failed K2 wave propagates whatever
 the flag says. Building or loading K2's library is not a wave either: a
 bank that may take the fused form on the card loads it when it is
 constructed, and a failure raises there. `bank_shard="sharded"` and
-more than one device raise NotImplementedError naming slice 5.
+more than one device raise NotImplementedError naming slice 5b.
 
 Residency: each shape class holds `capacity` resident slots. Admission
 stages all newly needed tenants of a wave on the host and ships ONE
@@ -106,13 +106,13 @@ def check_bank_form(form: str) -> None:
 def select_shard_form(form: str) -> str:
     """The bank placement form (ONIX_BANK_SHARD > explicit >
     "single"). Tenant-hash placement over several cards waits for
-    slice 5: "sharded" raises NotImplementedError."""
+    slice 5b: "sharded" raises NotImplementedError."""
     got = resolve_form_gate(gate="bank shard", choices=("single", "sharded"),
                             explicit=form, env_var="ONIX_BANK_SHARD",
                             default="single")
     if got == "sharded":
         raise not_ported("serving.bank_shard='sharded'",
-                         "slice 5 (multiple devices and hosts)")
+                         "slice 5b (the collective-free placements)")
     return got
 
 
@@ -245,7 +245,7 @@ class ModelBank:
             raise ValueError("prefetch_depth must be >= 0 (0 = off)")
         if devices is not None and len(devices) > 1:
             raise not_ported("a model bank over several devices",
-                             "slice 5 (multiple devices and hosts)")
+                             "slice 5b (the collective-free placements)")
         self.shard_form = select_shard_form(shard_form)
         self.device = resolve_device(devices[0] if devices else device)
         # The serve gate resolves per wave; resolving it once here makes

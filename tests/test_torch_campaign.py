@@ -286,9 +286,13 @@ def test_campaign_refusals(monkeypatch):
         run_campaign(1000, datatypes=("flow", "nope"), device="cpu")
     with pytest.raises(ValueError, match="single-estimate"):
         run_campaign(1000, n_chains=2, model_sink={}, device="cpu")
-    for kw in (dict(dp=2), dict(fit_hosts=2)):
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            run_campaign(1000, device="cpu", **kw)
+    # A mesh wider than the conftest's 8 CPU devices, and a warm start
+    # for the cold-only fabric (the reference's `campaign.py:282-288`).
+    with pytest.raises(ValueError, match="needs 16 devices"):
+        run_campaign(1000, dp=16, device="cpu")
+    with pytest.raises(ValueError, match="cold-fit only"):
+        run_campaign(1000, fit_hosts=2, device="cpu",
+                     warm_start={"flow": {}})
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         run_campaign(1000)

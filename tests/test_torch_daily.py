@@ -434,6 +434,13 @@ def test_entry_points_default_to_the_card(tmp_path, monkeypatch):
         run_daily(1, tmp_path, n_events=500)
     with pytest.raises(RuntimeError, match="cuda"):
         tdaily.main(["--days", "1", "--root", str(tmp_path)])
-    for kw in (dict(dp=2), dict(fit_hosts=2)):
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            run_daily(1, tmp_path, n_events=500, device="cpu", **kw)
+    # A mesh wider than the conftest's 8 CPU devices poisons the day
+    # (the supervisor quarantines a day whose campaign raises); the
+    # fabric without force_cold is refused up front (the reference's
+    # `daily.py:356-360`).
+    m = run_daily(1, tmp_path / "dp", n_events=500, device="cpu", dp=16)
+    assert m["days"][0]["status"] == "failed"
+    assert "needs 16 devices, have 8" in m["days"][0]["error"]
+    with pytest.raises(ValueError, match="needs force_cold"):
+        run_daily(1, tmp_path / "hosts", n_events=500, device="cpu",
+                  fit_hosts=2)

@@ -44,7 +44,7 @@ from onix_torch.models import fleet_gibbs as tf  # noqa: E402
 from onix_torch.models.compaction import pow2_bucket  # noqa: E402
 from onix_torch.models.lda_gibbs import LL_PARITY_BAND  # noqa: E402
 from onix_torch.parallel import fleet_shard as tshard  # noqa: E402
-from onix_torch.parallel.mesh import Mesh  # noqa: E402
+from onix_torch.parallel.mesh import make_mesh  # noqa: E402
 from onix_torch.pipelines import fleet as tfleet  # noqa: E402
 from onix_torch.pipelines.fleet import (run_fleet, tenant_lineage,  # noqa: E402
                                         tenant_name)
@@ -210,12 +210,12 @@ def test_shard_class_identity_on_one_device_and_refuses_a_mesh():
     sc = tf.stack_tenants([tenant_pair(u, 30, 90, 300, rng)[1]
                            for u in range(3)], k_topics=8, seed=0,
                           day=1)[0]
-    for mesh in (None, Mesh(torch.device("cpu"), {"dp": 1, "mp": 1})):
+    for mesh in (None, make_mesh(1, 1, device="cpu")):
         out = tshard.shard_class(sc, mesh)
         for name in tshard.LANE_ARRAYS:
             assert out[name] is getattr(sc, name)
     with pytest.raises(NotImplementedError, match="slice 5"):
-        tshard.shard_class(sc, Mesh(torch.device("cpu"), {"dp": 2, "mp": 1}))
+        tshard.shard_class(sc, make_mesh(2, 1, device="cpu"))
 
 
 def test_fleet_class_from_numpy_converts_the_reference_class():

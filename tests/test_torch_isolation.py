@@ -74,6 +74,12 @@ LIFECYCLE_MODULES = ("onix_torch.pipelines.campaign",
                      "onix_torch.parallel.fleet_shard",
                      "onix_torch.feedback.online")
 
+FIT_MODULES = ("onix_torch.parallel.mesh",
+               "onix_torch.parallel.sharded_gibbs",
+               "onix_torch.parallel.hostfabric",
+               "onix_torch.pipelines.scale",
+               "onix_torch.pipelines.rehearsal")
+
 
 OA_MODULES = ("onix_torch.oa.engine", "onix_torch.oa.components",
               "onix_torch.oa.repclients", "onix_torch.oa.notebooks",
@@ -138,7 +144,7 @@ def test_port_package_list_is_not_empty():
                  "onix_torch/pipelines/run.py", "chip_smoke.py",
                  *(m.replace(".", "/") + ".py"
                    for m in SERVING_MODULES + LIFECYCLE_MODULES
-                   + ANALYST_MODULES)):
+                   + ANALYST_MODULES + FIT_MODULES)):
         assert must in names
 
 
@@ -162,6 +168,45 @@ def test_lifecycle_modules_load_neither_jax_nor_onix():
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert probe.returncode == 0, probe.stderr[-2000:]
     assert probe.stdout.strip() == "[]"
+
+
+def test_fit_modules_load_neither_jax_nor_onix():
+    probe = subprocess.run(
+        [sys.executable, "-c",
+         f"import sys; import {', '.join(FIT_MODULES)}; "
+         "print(sorted(m for m in sys.modules "
+         "if m.split('.')[0] in ('jax', 'onix')))"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert probe.returncode == 0, probe.stderr[-2000:]
+    assert probe.stdout.strip() == "[]"
+
+
+def test_fabric_worker_loads_neither_jax_nor_onix(tmp_path):
+    # A spawned worker (`python -m onix_torch.parallel.hostfabric`) runs
+    # a one-host fit; a sitecustomize on its path records, at its exit,
+    # every module of jax or onix it loaded.
+    from onix_torch.config import LDAConfig
+    from onix_torch.corpus import Corpus
+    from onix_torch.parallel import hostfabric
+    site = tmp_path / "site"
+    site.mkdir()
+    seen = tmp_path / "modules.json"
+    (site / "sitecustomize.py").write_text(
+        "import atexit, json, sys\n"
+        "atexit.register(lambda: open(%r, 'w').write(json.dumps(sorted("
+        "m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'onix')))))\n" % str(seen))
+    rng = np.random.default_rng(0)
+    corpus = Corpus(rng.integers(0, 10, 300).astype(np.int32),
+                    rng.integers(0, 20, 300).astype(np.int32), 10, 20)
+    out = hostfabric.run_fit(
+        corpus, LDAConfig(n_topics=3, n_sweeps=2, burn_in=1,
+                          block_size=128, superstep=2),
+        tmp_path / "fabric", n_hosts=1, device="cpu", timeout_s=120.0,
+        worker_env={0: {"PYTHONPATH": str(site)}})
+    assert out["manifest"]["generations"] == 1
+    assert seen.exists()
+    assert seen.read_text() == "[]"
 
 
 def test_k2_cpu_tensors_count_no_kernel_launch():

@@ -170,13 +170,14 @@ def test_rehearsal_cli_writes_every_field(have_oracle, tmp_path, capsys):
 ])
 def test_rehearsal_arms_outside_the_port_raise(kw, what):
     # The sharded engine, the sessions generator and the bf16 arm run on
-    # one device (test_rehearsal_sharded_bf16_arm_matches_reference,
-    # tests/test_torch_synth2.py); on a wider mesh they still raise,
-    # before any data is built.
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    # any mesh the devices hold (test_rehearsal_sharded_bf16_arm_matches_
+    # reference, tests/test_torch_synth2.py, tests/test_torch_shard_arm.py);
+    # a mesh wider than the conftest's 8 CPU devices raises before any
+    # data is built.
+    with pytest.raises(ValueError, match="needs 16 devices, have 8"):
         rehearsal.run_rehearsal(n_events=100, device="cpu",
                                 **dict(kw, engine="sharded",
-                                       engine_mesh=(2, 1)))
+                                       engine_mesh=(16, 1)))
 
 
 def _capture_scores(monkeypatch, module):

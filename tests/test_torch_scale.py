@@ -236,19 +236,29 @@ def test_extend_model_for_unseen_matches_reference():
         jscale._default_anomalies(10 ** 7) == 1000
 
 
-@pytest.mark.parametrize("kw,env,what", [
-    (dict(fit_hosts=2), None, "slice 5"),
-    (dict(generator="sessions", fit_hosts=2), None, "slice 5"),
-    (dict(), ("ONIX_DP1_FAST", "0"), "slice 5"),
-    (dict(rebalance=True), None, "slice 5"),
+@pytest.mark.parametrize("kw,what", [
+    (dict(fit_hosts=2), "need 2 cards"),
+    (dict(generator="sessions", fit_hosts=2), "need 2 cards"),
+    (dict(fit_hosts=3), "need 3 cards"),
+    (dict(fit_hosts=2, rebalance=True), "need 2 cards"),
 ])
-def test_paths_outside_the_port_raise(monkeypatch, kw, env, what):
+def test_paths_outside_the_port_raise(monkeypatch, kw, what):
+    # The host fabric's refusal before it spawns a worker: card workers
+    # on a host with too few cards (one, stubbed) and no worker_env.
+    # The caller's device names the workers' platform; the fit's 1x1
+    # model, built before the fabric, stays on the CPU.
+    from onix_torch.parallel import hostfabric
+    from onix_torch.parallel import mesh as tmesh
     monkeypatch.delenv("ONIX_HOST_WORDS", raising=False)
     monkeypatch.delenv("ONIX_DEVICE_WORDS", raising=False)
-    if env is not None:
-        monkeypatch.setenv(*env)
-    with pytest.raises(NotImplementedError, match=what):
-        tscale.run_scale(20_000, n_sweeps=1, device="cpu", **kw)
+    monkeypatch.setattr(tscale, "resolve_device",
+                        lambda device: torch.device(device))
+    monkeypatch.setattr(tscale, "make_mesh",
+                        lambda **kw: tmesh.make_mesh(1, 1, device="cpu"))
+    monkeypatch.setattr(hostfabric, "_visible_cards", lambda: ["0"])
+    with pytest.raises(hostfabric.FabricError,
+                       match=f"{what}, this host has 1"):
+        tscale.run_scale(20_000, n_sweeps=1, device="cuda", **kw)
 
 
 def test_unknown_generator_is_refused():

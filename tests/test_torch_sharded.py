@@ -340,23 +340,48 @@ def test_run_scoring_sharded_matches_reference(tmp_path, monkeypatch,
 
 @pytest.mark.parametrize("dp,mp", [(2, 1), (1, 2)])
 def test_meshes_beyond_one_device_raise(dp, mp):
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tmesh.make_mesh(dp, mp, device="cpu")
+    # A mesh of more positions than the devices it is given raises, as
+    # the reference's `make_mesh` does (`mesh.py:52-53`); the devices
+    # may repeat (tests/test_torch_shard_arm.py runs such meshes).
+    with pytest.raises(ValueError, match=f"needs {dp * mp} devices, "
+                                         "have 1"):
+        tmesh.make_mesh(dp, mp, devices=["cpu"])
+    assert tmesh.make_mesh(dp, mp, devices=["cpu"] * 2).shape == \
+        {"dp": dp, "mp": mp}
 
 
 @pytest.mark.parametrize("kw", [dict(coordinator="localhost:1234",
-                                     num_processes=2, process_id=0),
+                                     num_processes=2),
                                 dict(num_processes=2)])
 def test_multihost_init_raises(kw):
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    # A bad explicit configuration raises before any process group
+    # starts; with no arguments and no cluster environment it is the
+    # solo no-op.
+    with pytest.raises(ValueError):
         tmesh.multihost_init(**kw)
     assert tmesh.multihost_init() is False
 
 
 def test_shard_map_arm_raises(corpus, monkeypatch):
+    # ONIX_DP1_FAST=0 no longer raises: it pins the shard arm at 1×1,
+    # which equals the fast path bit for bit (the reference's
+    # tests/test_sharded_gibbs.py::test_dp1_fast_path_matches_shard_map).
+    fast = port_fit(corpus, sampler="race", n_chains=2, sync_splits=2)
     monkeypatch.setenv("ONIX_DP1_FAST", "0")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        port_model(corpus)
+    model = port_model(corpus, sampler="race", n_chains=2, sync_splits=2)
+    assert not model.dp1_fast
+    arm = model.fit(port_corpus(corpus),
+                    noise=ShardedReplayNoise(SEED, 2))
+    assert torch.equal(arm["state"].z[0, 0], fast["state"].z)
+    for name in ("n_dk", "n_wk", "acc_ndk", "acc_nwk"):
+        assert torch.equal(getattr(arm["state"], name)[0],
+                           getattr(fast["state"], name)), name
+    assert torch.equal(arm["state"].n_k, fast["state"].n_k)
+    np.testing.assert_array_equal(arm["theta"], fast["theta"])
+    np.testing.assert_array_equal(arm["phi_wk"], fast["phi_wk"])
+    np.testing.assert_allclose([v for _, v in arm["ll_history"]],
+                               [v for _, v in fast["ll_history"]],
+                               rtol=1e-6)
 
 
 def test_sparse_sampler_raises(corpus):
@@ -374,12 +399,14 @@ def test_sparse_sampler_raises(corpus):
 
 
 def test_run_scoring_sharded_refuses_a_wider_mesh(tmp_path):
+    # A mesh wider than the visible devices (the conftest's 8 CPU
+    # devices) raises before the fit, as on one card `mesh.dp=2` does.
     table, _ = jsynth.synth_flow_day(500, n_hosts=20, n_anomalies=5, seed=0)
     Store(tmp_path).write("flow", DATE, table)
     cfg = tcfg.load_config(None, OVERRIDES + [f"store.root={tmp_path}",
-                                              "mesh.dp=2"])
+                                              "mesh.dp=16"])
     cfg.pipeline.date, cfg.pipeline.datatype = DATE, "flow"
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(ValueError, match="needs 16 devices, have 8"):
         trun.run_scoring(cfg, engine="sharded", device="cpu")
 
 
