@@ -243,13 +243,37 @@ non-zero and prints no result line):
              message: `score --engine sharded -s mesh.dp=2` and
              `run_scale(fit_hosts=2)` without worker_env. (e) the
              phase's wall and the process groups' backend.
+16. placements — the collective-free placements on the one card: (a)
+             the load harness at the bench shape of phase 12 (d) through
+             the sharded bank ("sharded" pinned in the spec) with 1, 2
+             and 4 homes laid on cuda:0 (`OneCardDevices`): winners and
+             scores bit-identical to the single bank, K2 launches = the
+             dispatches = the sum of `bank.wave.d{i}`, every home with
+             waves; fetch wait and batch walls; then K2 at the first
+             4-home wave's shape against its plain version, timed with
+             its bound and the torch.topk yardstick. (b) `serve_
+             background` with serving.bank_shard=sharded over 4 homes on
+             cuda:0 against the single form: one /score of 8 harness
+             tenants gives the single form's answer and the plain path's
+             bit for bit, K2 launches = dispatches. (c) `run_fleet` at
+             scripts/exp_fleet.py's widths (200 tenants, 600 events, K
+             10) cut to 2 days, over dp 1, 2 and 4 laid on cuda:0
+             (`OneCardMesh`): artifacts and lineage bit-identical to dp
+             1, K1 launches = sweeps x blocks x distinct devices; K1's
+             lane form at a padded class shape the fleet week does not
+             cover. (d) the refusals by message: a harness bank of 2
+             devices and a dp 2 fleet without the laying.
 
 `--groups` (a host of 2 or more cards) builds the kernels and runs only
-the shard arm over several cards in one process: a dp 2 x mp 2 mesh
-with its positions on cuda:0..3 (modulo the cards there are) against
-the same mesh laid on cuda:0, on phase 5's day, sync and async tau=1:
-z, theta and phi_wk bit-identical, the ll history within 1e-6
-relative; each fit's wall and K1 launches.
+what needs several cards, in one process: the shard arm with a dp 2 x
+mp 2 mesh with its positions on cuda:0..3 (modulo the cards there are)
+against the same mesh laid on cuda:0, on phase 5's day, sync and async
+tau=1: z, theta and phi_wk bit-identical, the ll history within 1e-6
+relative; each fit's wall and K1 launches. Then the placements over the
+cards: the sharded bank with its homes on cuda:0..3 against the single
+bank, the fleet over dp 4 against dp 1, and `run_scale(10^6)` over every
+visible card against the same mesh laid on cuda:0: bit-identical, the
+scale day's ll history within 1e-6 relative.
 
 The last lines of standard output are the card's name and power limit,
 a `{"kernels": [...]}` line (not in `--groups`), and `{"ok": true,
@@ -3854,115 +3878,121 @@ def k1_lane_inputs(t: int, b: int, k: int, v: int, d: int,
     return n_dk, n_wk, n_k, z_all, noise, docs, words, mask, lengths
 
 
-def phase_lane_step(card: str) -> dict:
-    """(a) K1's lane form: one call steps every lane, each with its own
-    ids and mask (the strided views [:, 1] of [T, 3, B] stacks). From
-    one snapshot it must equal its plain version exactly in z, n_dk,
-    n_wk and n_k, leave the other rows of z alone, and give each lane
-    what a one-lane call on that lane's slices gives. Times the call
-    (CUDA events, median of 30) and the plain version, with the bound
-    summed over the lanes. Returns the first fleet class's Gumbel
-    figures for K1's `lanes` entry."""
+def lane_case(card: str, label: str, t: int, b: int, k: int, v: int, d: int,
+              use_gumbel: bool, seed: int) -> dict:
+    """K1's lane form at one shape: one call steps every lane, each with
+    its own ids and mask (the strided views [:, 1] of [T, 3, B] stacks).
+    From one snapshot it must equal its plain version exactly in z,
+    n_dk, n_wk and n_k, leave the other rows of z alone, and give each
+    lane what a one-lane call on that lane's slices gives. Times the
+    call (CUDA events, median of 30) and the plain version, with the
+    bound summed over the lanes. Returns the case's row."""
     import itertools
 
     import torch
 
     from onix_torch.models import sample_count as sc
+    sampler = "gumbel" if use_gumbel else "race"
+    (n_dk, n_wk, n_k, z_all, noise, docs, words, mask,
+     lengths) = k1_lane_inputs(t, b, k, v, d, use_gumbel, seed=seed)
+    kw = dict(alpha=ALPHA, eta=ETA, v_eta=v * ETA, use_gumbel=use_gumbel)
+    snap = (n_dk, n_wk, n_k, z_all)
+
+    def fresh():
+        return [x.clone() for x in snap]
+
+    def step(st, fn=sc.gibbs_block_step_, g=noise):
+        fn(st[0], st[1], st[2], st[3][:, 1], g, docs[:, 1],
+           words[:, 1], mask[:, 1], **kw)
+    want = fresh()
+    step(want, sc.gibbs_block_step_plain)
+    got = fresh()
+    before = sc.launches
+    step(got)
+    torch.cuda.synchronize()
+    if sc.launches - before != 1:
+        raise AssertionError(f"K1 lanes {label}/{sampler}: "
+                             f"{sc.launches - before} calls, not 1")
+    for name, a, e in zip(("n_dk", "n_wk", "n_k", "z"), got, want):
+        if not torch.equal(a, e):
+            bad = int((a != e).sum())
+            raise AssertionError(
+                f"K1 lanes {label}/{sampler}: {name} differs "
+                f"from the plain step at {bad} places")
+    if not torch.equal(got[3][:, [0, 2]], z_all[:, [0, 2]]):
+        raise AssertionError(f"K1 lanes {label}/{sampler}: the "
+                             "call wrote outside z[:, 1]")
+    for i in range(t):
+        one = [snap[0][i].clone(), snap[1][i].clone(),
+               snap[2][i].clone(), snap[3][i, 1].clone()]
+        sc.gibbs_block_step_(one[0], one[1], one[2], one[3],
+                             noise[i].contiguous(),
+                             docs[i, 1].contiguous(),
+                             words[i, 1].contiguous(),
+                             mask[i, 1].contiguous(), **kw)
+        torch.cuda.synchronize()
+        for name, a, e in zip(("n_dk", "n_wk", "n_k", "z"), one,
+                              (got[0][i], got[1][i], got[2][i],
+                               got[3][i, 1])):
+            if not torch.equal(a, e):
+                raise AssertionError(
+                    f"K1 lanes {label}/{sampler}: lane {i} "
+                    f"{name} differs from a one-lane call")
+    n_moved = int(((want[3][:, 1] != z_all[:, 1])
+                   & (mask[:, 1] > 0)).sum())
+    err = max(float((a.double() - e.double()).abs().max())
+              for a, e in zip(got, want))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 10)
+    draws = itertools.cycle([
+        torch.stack([k1_noise(gen, b, k, use_gumbel)
+                     for _ in range(t)]) for _ in range(4)])
+    work, plain_work = fresh(), fresh()
+    ms = event_ms(lambda: step(work, g=next(draws)))
+    plain_ms = event_ms(lambda: step(
+        plain_work, sc.gibbs_block_step_plain, next(draws)),
+        reps=10)
+    parts = profiled_ms(lambda: step(work, g=next(draws)))
+    nbytes = ops = 0
+    for i in range(t):
+        _, _, nb_i, ops_i = step_bound(
+            docs[i, 1], words[i, 1], z_all[i, 1], want[3][i, 1],
+            mask[i, 1], k, use_gumbel)
+        nbytes += nb_i
+        ops += ops_i
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    say(card, f"K1 lanes {label} T={t} B={b} K={k} V={v} D={d} "
+              f"real tokens {min(lengths)}..{max(lengths)} "
+              f"{sampler}: one call, z, n_dk, n_wk, n_k equal to "
+              f"plain and to {t} one-lane calls ({n_moved} tokens "
+              f"moved); call {ms:.5f} ms, plain {plain_ms:.5f} ms "
+              f"(CUDA events, median); profiler: "
+              f"{_fmt(parts) or 'no device time'}; bound "
+              f"{bound_ms:.5f} ms by {bound_by} ({nbytes} B, "
+              f"{ops} ops)")
+    if parts and len(parts) != 2:
+        raise AssertionError(f"K1 lanes {label}/{sampler}: the "
+                             f"call ran {sorted(parts)}, not the "
+                             "sample and apply kernels alone")
+    return {"lanes": t, "B": b, "K": k, "V": v, "D": d, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err, "library_ms": None}
+
+
+def phase_lane_step(card: str) -> dict:
+    """(a) K1's lane form at `K1_LANE_SHAPES`, both samplers
+    (`lane_case`). Returns the first fleet class's Gumbel figures for
+    K1's `lanes` entry."""
     out = {}
     for si, (label, t, b, k, v, d) in enumerate(K1_LANE_SHAPES):
         for use_gumbel in (True, False):
-            sampler = "gumbel" if use_gumbel else "race"
-            (n_dk, n_wk, n_k, z_all, noise, docs, words, mask,
-             lengths) = k1_lane_inputs(t, b, k, v, d, use_gumbel,
-                                       seed=131 + si)
-            kw = dict(alpha=ALPHA, eta=ETA, v_eta=v * ETA,
-                      use_gumbel=use_gumbel)
-            snap = (n_dk, n_wk, n_k, z_all)
-
-            def fresh():
-                return [x.clone() for x in snap]
-
-            def step(st, fn=sc.gibbs_block_step_, g=noise):
-                fn(st[0], st[1], st[2], st[3][:, 1], g, docs[:, 1],
-                   words[:, 1], mask[:, 1], **kw)
-            want = fresh()
-            step(want, sc.gibbs_block_step_plain)
-            got = fresh()
-            before = sc.launches
-            step(got)
-            torch.cuda.synchronize()
-            if sc.launches - before != 1:
-                raise AssertionError(f"K1 lanes {label}/{sampler}: "
-                                     f"{sc.launches - before} calls, not 1")
-            for name, a, e in zip(("n_dk", "n_wk", "n_k", "z"), got, want):
-                if not torch.equal(a, e):
-                    bad = int((a != e).sum())
-                    raise AssertionError(
-                        f"K1 lanes {label}/{sampler}: {name} differs "
-                        f"from the plain step at {bad} places")
-            if not torch.equal(got[3][:, [0, 2]], z_all[:, [0, 2]]):
-                raise AssertionError(f"K1 lanes {label}/{sampler}: the "
-                                     "call wrote outside z[:, 1]")
-            for i in range(t):
-                one = [snap[0][i].clone(), snap[1][i].clone(),
-                       snap[2][i].clone(), snap[3][i, 1].clone()]
-                sc.gibbs_block_step_(one[0], one[1], one[2], one[3],
-                                     noise[i].contiguous(),
-                                     docs[i, 1].contiguous(),
-                                     words[i, 1].contiguous(),
-                                     mask[i, 1].contiguous(), **kw)
-                torch.cuda.synchronize()
-                for name, a, e in zip(("n_dk", "n_wk", "n_k", "z"), one,
-                                      (got[0][i], got[1][i], got[2][i],
-                                       got[3][i, 1])):
-                    if not torch.equal(a, e):
-                        raise AssertionError(
-                            f"K1 lanes {label}/{sampler}: lane {i} "
-                            f"{name} differs from a one-lane call")
-            n_moved = int(((want[3][:, 1] != z_all[:, 1])
-                           & (mask[:, 1] > 0)).sum())
-            err = max(float((a.double() - e.double()).abs().max())
-                      for a, e in zip(got, want))
-            gen = torch.Generator(device="cuda")
-            gen.manual_seed(141 + si)
-            draws = itertools.cycle([
-                torch.stack([k1_noise(gen, b, k, use_gumbel)
-                             for _ in range(t)]) for _ in range(4)])
-            work, plain_work = fresh(), fresh()
-            ms = event_ms(lambda: step(work, g=next(draws)))
-            plain_ms = event_ms(lambda: step(
-                plain_work, sc.gibbs_block_step_plain, next(draws)),
-                reps=10)
-            parts = profiled_ms(lambda: step(work, g=next(draws)))
-            nbytes = ops = 0
-            for i in range(t):
-                _, _, nb_i, ops_i = step_bound(
-                    docs[i, 1], words[i, 1], z_all[i, 1], want[3][i, 1],
-                    mask[i, 1], k, use_gumbel)
-                nbytes += nb_i
-                ops += ops_i
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / F32_OPS_PER_S * 1e3
-            bound_ms = max(t_bytes, t_ops)
-            bound_by = "bytes" if t_bytes >= t_ops else "operations"
-            say(card, f"K1 lanes {label} T={t} B={b} K={k} V={v} D={d} "
-                      f"real tokens {min(lengths)}..{max(lengths)} "
-                      f"{sampler}: one call, z, n_dk, n_wk, n_k equal to "
-                      f"plain and to {t} one-lane calls ({n_moved} tokens "
-                      f"moved); call {ms:.5f} ms, plain {plain_ms:.5f} ms "
-                      f"(CUDA events, median); profiler: "
-                      f"{_fmt(parts) or 'no device time'}; bound "
-                      f"{bound_ms:.5f} ms by {bound_by} ({nbytes} B, "
-                      f"{ops} ops)")
-            if parts and len(parts) != 2:
-                raise AssertionError(f"K1 lanes {label}/{sampler}: the "
-                                     f"call ran {sorted(parts)}, not the "
-                                     "sample and apply kernels alone")
+            row = lane_case(card, label, t, b, k, v, d, use_gumbel,
+                            seed=131 + si)
             if si == 0 and use_gumbel:
-                out = {"lanes": t, "B": b, "K": k, "V": v, "D": d,
-                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "max_abs_err": err,
-                       "library_ms": None}
+                out = row
     return out
 
 
@@ -3984,10 +4014,10 @@ def fleet_identity(manifest: dict) -> list:
 
 def k1_calls(dispatches: list) -> int:
     """The K1 calls a fleet run's class refits make: sweeps x blocks
-    per pass, once per class (fleet arm) or once per lane (sequential
-    arm)."""
+    per pass, once per distinct device of the class's mesh (fleet arm;
+    one without a mesh) or once per lane (sequential arm)."""
     return sum(dp["sweeps"] * dp["blocks"]
-               * (1 if dp["batched"] else dp["lanes"])
+               * (dp["devices"] if dp["batched"] else dp["lanes"])
                for dp in dispatches)
 
 
@@ -5391,6 +5421,458 @@ def phase_shards(card: str, root: pathlib.Path, table, planted,
     return row, k1_score + k1_fabric
 
 
+# -- phase 16 ---------------------------------------------------------------
+
+# (a) the sharded bank at the harness's bench shape (BENCH_SPEC), its
+# homes laid on the one card.
+PLACEMENT_HOMES = (1, 2, 4)
+# (b) requests of distinct harness tenants in one /score body.
+PLACEMENT_SERVE_REQUESTS, PLACEMENT_SERVE_EVENTS = 8, 4096
+# (c) the fleet refit at scripts/exp_fleet.py's widths (200 tenants, 600
+# events a day, K 10, 8 sweeps, M 60, seed 3, 8 plants on day 1), cut
+# from its 7 days to 2; dp 1 against dp 2 and dp 4 on the one card.
+PLACEMENT_FLEET = dict(days=2, tenants=200, n_events=600, n_sweeps=8,
+                       n_topics=10, max_results=60, seed=3, plant=8)
+PLACEMENT_FLEET_DP = (2, 4)
+
+
+class OneCardDevices:
+    """While active, `mesh.visible_devices` of a card names cuda:0 `n`
+    times, so the entry points that take the visible cards (the
+    harness's `spec.devices`, `onix serve`'s bank, `make_mesh(dp=None)`)
+    place that many homes or positions on the one card."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __enter__(self):
+        import torch
+
+        from onix_torch.parallel import mesh
+        self.mod, self.real = mesh, mesh.visible_devices
+
+        def visible_devices(device="cuda"):
+            got = self.real(device)
+            if got and got[0].type == "cuda":
+                return [torch.device("cuda", 0)] * self.n
+            return got
+        mesh.visible_devices = visible_devices
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.visible_devices = self.real
+        return False
+
+
+def wave_counts() -> dict:
+    from onix_torch.utils.obs import counters
+    return {k: v for k, v in counters.snapshot("bank").items()
+            if k.startswith("bank.wave.d")}
+
+
+def same_winners(a, b) -> bool:
+    """Two harness replays' winners, scores and indices, bit for bit."""
+    import numpy as np
+    return len(a["results"]) == len(b["results"]) and all(
+        np.array_equal(np.asarray(x.topk.scores), np.asarray(y.topk.scores))
+        and np.array_equal(np.asarray(x.topk.indices),
+                           np.asarray(y.topk.indices))
+        for x, y in zip(a["results"], b["results"]))
+
+
+def sharded_wave_row(card: str, args, kw) -> dict:
+    """K2 at a sharded bank wave's shape, on the wave's own inputs: equal
+    to its plain version; its call and the plain version timed (CUDA
+    events, median of 30), with the byte bound and the torch.topk
+    yardstick of the other K2 rows."""
+    import torch
+
+    from onix_torch.models import fused_serve as fs
+    theta, phi, slots, d, w, m, tol, filt = args
+    case = dict(ops=(theta, phi, d, w), mask=m, mode="dot", slots=slots,
+                max_results=kw["max_results"], tol=tol, filt=filt,
+                shape=tuple(d.shape), row_len=kw["row_len"])
+    cargs, opts = _k2_args(case)
+    got = fs.fused_call(*cargs, **opts)
+    want = fs.fused_call_plain(*cargs, **opts)
+    torch.cuda.synchronize()
+    if not (torch.equal(got.scores, want.scores)
+            and torch.equal(got.indices, want.indices)):
+        raise AssertionError("K2 at the sharded wave differs from its plain "
+                             "version")
+    fin = torch.isfinite(want.scores)
+    err = float(torch.where(fin, (got.scores - want.scores).abs(),
+                            torch.zeros_like(got.scores)).max())
+    ms = event_ms(lambda: fs.fused_call(*cargs, **opts))
+    plain_ms = event_ms(lambda: fs.fused_call_plain(*cargs, **opts))
+    n_real = int((m > 0).sum())
+    bound_ms, bound_by, nbytes, ops = k2_bound(case, n_real)
+    r, n = case["shape"]
+    mr = case["max_results"]
+    screened = k2_screened(case)
+    topk_ms = event_ms(lambda: torch.topk(screened, mr, dim=-1,
+                                          largest=False, sorted=True))
+    form = fs.kernel_form(r, n, mr, theta.shape[-1])
+    say(card, f"K2 sharded wave {r}x{n} (M {mr}, {n_real} real events): "
+              f"{form} form, equal to plain; call {ms:.5f} ms (CUDA events, "
+              f"median of 30); bound {bound_ms:.5f} ms by {bound_by} "
+              f"({nbytes} B, {ops} ops); plain {plain_ms:.5f} ms; "
+              f"torch.topk of the screened scores {topk_ms:.5f} ms")
+    return {"rows": r, "N": n, "M": mr, "form": form, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err, "library_ms": None,
+            "topk_ms": topk_ms}
+
+
+def staging_behind_k2(card: str) -> None:
+    """A sharded wave's staging (`model_bank._staged`: pinned memory, a
+    non-blocking copy) must not wait for the work already queued on the
+    card, as an earlier wave's K2: with the stream held by a spin kernel,
+    staging a 16 x 4,096 wave's four id and mask arrays must return to
+    the host in under half the spin. A pageable copy behind the same
+    spin is timed beside it."""
+    import numpy as np
+    import torch
+
+    from onix_torch.serving.model_bank import _staged
+    dev = torch.device("cuda", 0)
+    arrays = [np.zeros((16, 4096), np.int32) for _ in range(4)]
+    for a in arrays:
+        _staged(a, dev)                 # the pinned pool's first blocks
+    torch.cuda.synchronize()
+    host = {}
+    spin = []
+    for label, stage in (("pinned non-blocking", lambda a: _staged(a, dev)),
+                         ("pageable", lambda a: torch.from_numpy(a).to(dev))):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        torch.cuda._sleep(20_000_000)
+        e1.record()
+        t0 = time.perf_counter()
+        for a in arrays:
+            stage(a)
+        host[label] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        spin.append(e0.elapsed_time(e1))
+    say(card, f"staging behind a busy stream (spin {spin[0]:.3f} / "
+              f"{spin[1]:.3f} ms): 4 arrays of a 16 x 4,096 wave take "
+              f"{host['pinned non-blocking']:.3f} ms on the host pinned "
+              f"and non-blocking, {host['pageable']:.3f} ms pageable")
+    if host["pinned non-blocking"] > 0.5 * spin[0]:
+        raise AssertionError("a sharded wave's staging waited for the "
+                             "card's queued work")
+
+
+def phase_sharded_bank(card: str) -> tuple:
+    """(a) The load harness at the bench shape through the sharded bank,
+    "sharded" pinned through the spec, its 1, 2 and 4 homes on cuda:0
+    (`OneCardDevices`): winners and scores bit-identical to the single
+    bank's; K2 launches = the replay's dispatches = the sum of its
+    `bank.wave.d{i}` (none with one home), every home with waves; the
+    fetch wait and the batch walls. Then K2 at the first 4-home wave's
+    shape (`sharded_wave_row`). Returns (that row, K2 launches)."""
+    import dataclasses
+    import statistics as st
+
+    import torch
+
+    from onix_torch.models import fused_serve as fs
+    from onix_torch.serving import load_harness as lh
+    from onix_torch.utils import telemetry
+    spec = lh.HarnessSpec(**BENCH_SPEC)
+    models, stream = lh.make_tenants(spec), lh.make_stream(spec)
+    kw = dict(tol=spec.tol, max_results=spec.max_results)
+
+    def dispatch_s():
+        h = telemetry.histograms.get("span.bank.wave")
+        return h.sum if h is not None else 0.0
+
+    def run(s):
+        lh.replay(lh.build_service(s, models, device="cuda"), stream,
+                  **kw)                                   # warm
+        svc = lh.build_service(s, models, device="cuda")
+        waves0 = wave_counts()
+        torch.cuda.synchronize()
+        fs.launches = 0
+        # From empty (admission, the first waves' collective-free
+        # checks), then again with every tenant resident.
+        outs = []
+        for _ in range(2):
+            span0 = dispatch_s()
+            outs.append(lh.replay(svc, stream, **kw))
+            torch.cuda.synchronize()
+            outs[-1]["dispatch_s"] = dispatch_s() - span0
+        waves = {k: v - waves0.get(k, 0) for k, v in wave_counts().items()
+                 if v - waves0.get(k, 0)}
+        return svc, outs, fs.launches, waves
+    launches = 0
+    _, (_, single), k2, _ = run(spec)
+    launches += k2
+    captured = []
+    real = fs.bank_score_fused
+
+    def capture(*a, **k):
+        if not captured:
+            captured.append((a, k))
+        return real(*a, **k)
+    walls = {}
+    for homes in PLACEMENT_HOMES:
+        s = dataclasses.replace(spec, devices=homes, shard_form="sharded")
+        with OneCardDevices(max(PLACEMENT_HOMES)):
+            if homes == max(PLACEMENT_HOMES):
+                fs.bank_score_fused = capture
+            try:
+                svc, (first, out), k2, waves = run(s)
+            finally:
+                fs.bank_score_fused = real
+        launches += k2
+        if not (same_winners(out, single) and same_winners(first, single)):
+            raise AssertionError(f"sharded bank, {homes} home(s): winners "
+                                 "differ from the single bank's")
+        bank = svc.bank
+        if bank.shard_form_resolved() != "sharded" \
+                or bank.n_devices() != homes:
+            raise AssertionError(f"sharded bank, {homes} home(s): form "
+                                 f"{bank.shard_form_resolved()}, "
+                                 f"{bank.n_devices()} devices")
+        check_launches(f"sharded bank {homes} home(s): K2", k2,
+                       first["dispatches"] + out["dispatches"])
+        if homes > 1:
+            check_launches(f"sharded bank {homes} homes: waves",
+                           sum(waves.values()), k2)
+            if sorted(waves) != [f"bank.wave.d{i}" for i in range(homes)]:
+                raise AssertionError(f"sharded bank {homes} homes: waves "
+                                     f"{waves}")
+        elif waves:
+            raise AssertionError(f"one home ran the wave phase: {waves}")
+        walls[homes] = out["wall_s"]
+        say(card, f"sharded bank, {homes} home(s) on cuda:0: {len(stream)} "
+                  f"requests of {spec.events_per_request} events, batches "
+                  f"of {spec.batch_requests}: winners and scores "
+                  f"bit-identical to the single bank; K2 launches {k2} = "
+                  f"dispatches; waves {json.dumps(waves)}; from empty: "
+                  f"wall {first['wall_s']:.4f} s, dispatch phase "
+                  f"(bank.wave spans) {first['dispatch_s'] * 1e3:.3f} ms, "
+                  f"fetch wait {first['fetch_wait_us']} us; resident: "
+                  f"dispatch phase {out['dispatch_s'] * 1e3:.3f} ms, "
+                  f"fetch wait {out['fetch_wait_us']} us, replay wall "
+                  f"{out['wall_s']:.4f} s, batch p50 "
+                  f"{out['latency_p50_ms']} ms, p99 "
+                  f"{out['latency_p99_ms']} ms; {out['events_per_sec']} "
+                  f"events/s; per-home residency "
+                  f"{json.dumps(bank.tier_stats()['hbm']['per_device_resident'])}")
+    _, (_, again), k2, _ = run(spec)
+    launches += k2
+    say(card, f"sharded bank, resident replays: single bank wall "
+              f"{single['wall_s']:.4f} s (first) and {again['wall_s']:.4f} "
+              f"s (last), against "
+              f"{json.dumps(walls)} by homes; median "
+              f"{st.median(walls.values()):.4f} s")
+    staging_behind_k2(card)
+    args, wkw = captured[0]
+    row = sharded_wave_row(card, args, wkw)
+    return row, launches
+
+
+def phase_serve_sharded(card: str, root: pathlib.Path) -> int:
+    """(b) `onix serve` with serving.bank_shard=sharded on the card, its
+    bank over 4 homes on cuda:0 (`OneCardDevices`), against the same
+    server with the single form: one /score of 8 harness tenants gives
+    the single form's answer and the plain single-tenant path's bit for
+    bit; K2 launches equal the bank's dispatches. Returns K2's
+    launches."""
+    import numpy as np
+    import torch
+
+    from onix_torch.config import OnixConfig
+    from onix_torch.models import fused_serve as fs
+    from onix_torch.oa.serve import serve_background
+    from onix_torch.utils.obs import counters
+    store = root / "placements_serve"
+    cfg0 = OnixConfig()
+    cfg0.store.root = str(store)
+    cfg0.validate()
+    harness = write_harness_tenants(cfg0.serving.models_dir, seed=5)
+    names = sorted(harness)[:PLACEMENT_SERVE_REQUESTS]
+    rng = np.random.default_rng(6)
+    reqs = [(t, rng.integers(0, HARNESS_D, PLACEMENT_SERVE_EVENTS)
+             .astype(np.int32),
+             rng.integers(0, HARNESS_V, PLACEMENT_SERVE_EVENTS)
+             .astype(np.int32)) for t in names]
+    tol, m = cfg0.pipeline.tol, cfg0.pipeline.max_results
+    body = {"requests": [{"tenant": t, "doc_ids": d.tolist(),
+                          "word_ids": w.tolist()} for t, d, w in reqs],
+            "tol": tol, "max_results": m}
+    oracle = harness_oracle("cuda")
+    tables = {t: tuple(torch.from_numpy(a).to("cuda") for a in harness[t])
+              for t in names}
+    answers, launches = {}, 0
+    for shard in ("single", "sharded"):
+        cfg = OnixConfig()
+        cfg.store.root = str(store)
+        cfg.serving.serve_form = "fused"
+        cfg.serving.bank_shard = shard
+        cfg.validate()
+        with OneCardDevices(4):
+            srv, port = serve_background(cfg, device="cuda")
+            try:
+                torch.cuda.synchronize()
+                fs.launches = 0
+                d0 = counters.get("bank.dispatch")
+                out, wall = http_json(port, "POST", "/score", body)
+                torch.cuda.synchronize()
+                k2 = fs.launches
+                dispatches = counters.get("bank.dispatch") - d0
+                stats, _ = http_json(port, "GET", "/bank/stats")
+            finally:
+                srv.shutdown()
+                srv.server_close()
+        launches += k2
+        check_launches(f"serve {shard}: K2", k2, dispatches)
+        tiers = stats["tiers"]
+        if (tiers["shard_form"], tiers["n_devices"]) != (shard, 4):
+            raise AssertionError(f"serve {shard}: tiers {tiers}")
+        for (t, d, w), res in zip(reqs, out["results"]):
+            check_winners(res, oracle(tables, t, d, w, tol, m),
+                          f"serve {shard} {t}")
+        answers[shard] = [(r["indices"], r["scores"])
+                          for r in out["results"]]
+        say(card, f"serve -s serving.bank_shard={shard}: one /score of "
+                  f"{len(reqs)} tenants x {PLACEMENT_SERVE_EVENTS} events "
+                  f"in {wall:.3f} s, bank over {tiers['n_devices']} homes "
+                  f"on cuda:0, per-home residency "
+                  f"{json.dumps(tiers['hbm']['per_device_resident'])}; "
+                  f"K2 launches {k2} = dispatches; winners equal to the "
+                  "plain single-tenant path")
+    if answers["sharded"] != answers["single"]:
+        raise AssertionError("serve: the sharded form's answer differs from "
+                             "the single form's")
+    return launches
+
+
+def phase_fleet_dp(card: str, root: pathlib.Path) -> tuple:
+    """(c) The fleet refit at PLACEMENT_FLEET over dp 1, 2 and 4, the dp
+    positions on cuda:0 (`OneCardMesh`): every ledger body and every
+    tenant's lineage identical to dp 1's; K1 launches = sweeps x blocks
+    x distinct devices summed over the class refits, K2's the ok
+    tenant-days'. K1's lane form at a padded class shape that the fleet
+    week's rows do not cover is held and timed (`lane_case`). Returns
+    (that row or None, K1 launches, K2 launches)."""
+    import ast
+
+    import torch
+
+    from onix_torch.models import fused_serve as fs
+    from onix_torch.models import sample_count
+    from onix_torch.pipelines.fleet import (run_fleet, tenant_lineage,
+                                            tenant_name)
+    from onix_torch.utils.obs import counters
+    wk = PLACEMENT_FLEET
+    kw = {k: wk[k] for k in ("n_events", "n_sweeps", "n_topics",
+                             "max_results", "seed")}
+    runs = {}
+    k1_all = k2_all = 0
+    for dp in (1,) + PLACEMENT_FLEET_DP:
+        for ns in ("fleet", "campaign", "daily", "faults", "ckpt"):
+            counters.reset(ns)
+        torch.cuda.synchronize()
+        sample_count.launches = fs.launches = 0
+        t0 = time.perf_counter()
+        with OneCardMesh():
+            m = run_fleet(wk["days"], wk["tenants"], root / f"fleet_dp{dp}",
+                          plants={1: wk["plant"]}, dp=dp, device="cuda",
+                          **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1, k2 = sample_count.launches, fs.launches
+        k1_all += k1
+        k2_all += k2
+        agg = m["aggregate"]
+        if agg["ok_tenant_days"] != wk["days"] * wk["tenants"]:
+            raise AssertionError(f"fleet dp {dp}: {agg}")
+        check_launches(f"fleet dp {dp} K1", k1, k1_calls(m["dispatches"]))
+        check_launches(f"fleet dp {dp} K2", k2, agg["ok_tenant_days"])
+        runs[dp] = m
+        lanes = sorted({(d["class"], d["lanes"],
+                         -(-d["lanes"] // dp) * dp) for d in m["dispatches"]})
+        say(card, f"fleet dp {dp} on cuda:0: {wk['tenants']} tenants x "
+                  f"{wk['days']} days, {kw['n_events']} events, K "
+                  f"{kw['n_topics']}: {agg['ok_tenant_days']} ok tenant-days; "
+                  f"class refits (class, lanes, padded) {lanes}; K1 launches "
+                  f"{k1} (devices a refit "
+                  f"{sorted({d['devices'] for d in m['dispatches']})}), K2 "
+                  f"{k2}; fit wall {agg['fit_wall_s']} s, run wall "
+                  f"{wall:.2f} s")
+        if dp == 1:
+            continue
+        same = fleet_identity(m) == fleet_identity(runs[1]) and all(
+            tenant_lineage(m, tenant_name(u))
+            == tenant_lineage(runs[1], tenant_name(u))
+            for u in range(wk["tenants"]))
+        if not same:
+            raise AssertionError(f"fleet dp {dp}: artifacts differ from "
+                                 "dp 1's")
+        say(card, f"fleet dp {dp}: ledger bodies, models, winners, lineage "
+                  "and nudge digests bit-identical to dp 1's")
+    covered = {(t, b, v, d) for _, t, b, _, v, d in K1_LANE_SHAPES}
+    row = None
+    for dp in PLACEMENT_FLEET_DP:
+        for disp in runs[dp]["dispatches"]:
+            d_pad, v_pad, n_pad = ast.literal_eval(disp["class"])
+            padded = -(-disp["lanes"] // dp) * dp
+            b = min(n_pad, 1 << 16)
+            shape = (padded, b, v_pad, d_pad)
+            if row is None and padded != disp["lanes"] \
+                    and shape not in covered:
+                row = lane_case(card, f"fleet class padded for dp {dp}",
+                                padded, b, wk["n_topics"], v_pad, d_pad,
+                                True, seed=151)
+    if row is None:
+        say(card, "fleet dp: every padded class shape is a fleet week "
+                  "row's (K1_LANE_SHAPES): no new K1 row")
+    return row, k1_all, k2_all
+
+
+def phase_placement_refusals(card: str, root: pathlib.Path) -> None:
+    """(d) The refusals one card implies, by message: a harness bank of
+    2 devices and a dp 2 fleet without a laying on cuda:0."""
+    from onix_torch.pipelines.fleet import run_fleet
+    from onix_torch.serving import load_harness as lh
+    spec = lh.HarnessSpec(**{**BENCH_SPEC, "n_tenants": 2}, devices=2)
+    cases = [
+        ("harness spec.devices=2", "spec.devices=2 > available 1",
+         lambda: lh.build_service(spec, lh.make_tenants(spec),
+                                  device="cuda")),
+        ("run_fleet(dp=2)", "needs 2 devices, have 1",
+         lambda: run_fleet(1, 2, root / "fleet_refused", n_events=600,
+                           dp=2, device="cuda")),
+    ]
+    for what, msg, call in cases:
+        try:
+            call()
+        except ValueError as e:
+            if msg not in str(e):
+                raise AssertionError(f"{what}: refused with {e!r}, not "
+                                     f"{msg!r}") from e
+            say(card, f"refusal: {what} on one card: {e}")
+            continue
+        raise AssertionError(f"{what} ran on one card")
+
+
+def phase_placements(card: str, root: pathlib.Path) -> tuple:
+    """Phase 16: (a)-(d). Returns ({K2 row, K1 row or None}, K1
+    launches, K2 launches)."""
+    t0 = time.perf_counter()
+    wave_row, k2_bank = phase_sharded_bank(card)
+    k2_serve = phase_serve_sharded(card, root)
+    lane_row, k1, k2_fleet = phase_fleet_dp(card, root)
+    phase_placement_refusals(card, root)
+    say(card, f"phase 16 wall {time.perf_counter() - t0:.1f} s")
+    return ({"sharded_wave": wave_row, "fleet_dp": lane_row}, k1,
+            k2_bank + k2_serve + k2_fleet)
+
+
 GROUPS_LL_RTOL = 1e-6
 
 
@@ -5459,6 +5941,105 @@ def phase_card_groups(card: str) -> None:
                   f"relative (bar {GROUPS_LL_RTOL})")
 
 
+def phase_group_placements(card: str) -> None:
+    """`--groups`, slice 5b: the placements over the cards themselves,
+    each against one card. The sharded bank at the harness's bench shape
+    with its homes on cuda:0..3 against the single bank; the fleet at
+    PLACEMENT_FLEET over dp 4 (or as many cards as there are) against
+    dp 1; `run_scale(10^6)` over every visible card against the same
+    mesh laid on cuda:0 (`OneCardDevices`): winners, fleet artifacts,
+    z, theta and phi_wk bit-identical, the scale day's ll history
+    within GROUPS_LL_RTOL."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from onix_torch.parallel.sharded_gibbs import ShardedGibbsLDA
+    from onix_torch.pipelines.fleet import run_fleet, tenant_lineage
+    from onix_torch.pipelines.scale import run_scale
+    from onix_torch.serving import load_harness as lh
+    n = min(torch.cuda.device_count(), 4)
+
+    def sync_all():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+    spec = lh.HarnessSpec(**BENCH_SPEC)
+    models, stream = lh.make_tenants(spec), lh.make_stream(spec)
+    kw = dict(tol=spec.tol, max_results=spec.max_results)
+    got = {}
+    for label, s in (("single", spec),
+                     ("sharded", dataclasses.replace(
+                         spec, devices=n, shard_form="sharded"))):
+        lh.replay(lh.build_service(s, models, device="cuda"), stream,
+                  **kw)                                   # warm
+        svc = lh.build_service(s, models, device="cuda")
+        got[label] = lh.replay(svc, stream, **kw)
+        sync_all()
+        say(card, f"groups: harness bank {label} over "
+                  f"{svc.bank.n_devices()} card(s): replay "
+                  f"{got[label]['wall_s']:.4f} s, fetch wait "
+                  f"{got[label]['fetch_wait_us']} us, residency "
+                  f"{json.dumps(svc.bank.tier_stats()['hbm']['per_device_resident'])}")
+    if not same_winners(got["sharded"], got["single"]):
+        raise AssertionError("groups: the sharded bank over several cards "
+                             "differs from the single bank")
+
+    wk = PLACEMENT_FLEET
+    fkw = {k: wk[k] for k in ("n_events", "n_sweeps", "n_topics",
+                              "max_results", "seed")}
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="onix_groups_"))
+    fleets = {}
+    for dp in (1, n):
+        t0 = time.perf_counter()
+        fleets[dp] = run_fleet(wk["days"], wk["tenants"], tmp / f"dp{dp}",
+                               plants={1: wk["plant"]}, dp=dp,
+                               device="cuda", **fkw)
+        sync_all()
+        say(card, f"groups: fleet dp {dp} over {dp} card(s): fit wall "
+                  f"{fleets[dp]['aggregate']['fit_wall_s']} s, run wall "
+                  f"{time.perf_counter() - t0:.2f} s")
+    if fleet_identity(fleets[n]) != fleet_identity(fleets[1]) or any(
+            tenant_lineage(fleets[n], t) != tenant_lineage(fleets[1], t)
+            for t in fleets[1]["days"][0]["tenants"]):
+        raise AssertionError(f"groups: the dp {n} fleet over {n} cards "
+                             "differs from dp 1")
+
+    fits = {}
+    for label, lay in (("cards", None), ("one card", n)):
+        with FitStates(ShardedGibbsLDA) as seen:
+            if lay is None:
+                m = run_scale(DAY_EVENTS, device="cuda")
+            else:
+                with OneCardDevices(lay):
+                    m = run_scale(DAY_EVENTS, device="cuda")
+        sync_all()
+        (fit, _), = seen.seen
+        fits[label] = fit
+        say(card, f"groups: run_scale({DAY_EVENTS}) on {label}: mesh "
+                  f"{m['mesh']}, devices {m['devices']}, fit "
+                  f"{m['walls_seconds']['gibbs_fit']} s, planted "
+                  f"{m['planted_in_bottom_k']} of {m['planted_anomalies']}")
+        if m["mesh"] != {"dp": n, "mp": 1}:
+            raise AssertionError(f"groups: run_scale mesh {m['mesh']}")
+    a, b = fits["cards"], fits["one card"]
+    for what, x, y in (("z", a["state"].z.cpu(), b["state"].z.cpu()),
+                       ("theta", a["theta"], b["theta"]),
+                       ("phi_wk", a["phi_wk"], b["phi_wk"])):
+        if not np.array_equal(np.asarray(x), np.asarray(y)):
+            raise AssertionError(f"groups: run_scale {what} over the cards "
+                                 "differs from one card")
+    ll_a, ll_b = (np.array([v for _, v in f["ll_history"]]) for f in (a, b))
+    rel = float(np.max(np.abs(ll_a - ll_b) / np.abs(ll_b)))
+    if rel > GROUPS_LL_RTOL:
+        raise AssertionError(f"groups: run_scale ll history differs "
+                             f"(max relative {rel:.3e})")
+    say(card, f"groups: placements bit-identical to one card (harness "
+              f"bank, fleet dp {n}, run_scale z, theta, phi_wk); scale "
+              f"ll history within {rel:.3e} relative (bar "
+              f"{GROUPS_LL_RTOL})")
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args not in ([], ["--groups"]):
@@ -5485,6 +6066,7 @@ def main() -> int:
     phase_build(card)
     if args:
         phase_card_groups(card)
+        phase_group_placements(card)
         say(card, f"--groups passed in {time.perf_counter() - t0:.1f} s")
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -5565,6 +6147,15 @@ def main() -> int:
         launches["sample_count"] += k1
         no_fallback("phase 15")
         say(card, f"phase 15 passed in {time.perf_counter() - t15:.1f} s")
+        t16 = time.perf_counter()
+        placed, k1, k2 = phase_placements(card, root)
+        rows["fused_serve"]["sharded_wave"] = placed["sharded_wave"]
+        if placed["fleet_dp"] is not None:
+            rows["sample_count"]["fleet_dp"] = placed["fleet_dp"]
+        launches["sample_count"] += k1
+        launches["fused_serve"] += k2
+        no_fallback("phase 16")
+        say(card, f"phase 16 passed in {time.perf_counter() - t16:.1f} s")
     for name, row in rows.items():
         row["launches"] = launches[name]
     say(card, f"all phases passed in {time.perf_counter() - t0:.1f} s")

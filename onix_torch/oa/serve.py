@@ -24,13 +24,15 @@ A stdlib threading HTTP server with the reference's routes:
   service lock, so the next `/score` of that tenant is re-scored.
 - `GET /bank/stats` and `GET /metrics` (Prometheus text).
 
-The bank service is built on the first `/score` on the server's torch
-device (default the card; there is no fallback): the dashboards, the
-data mount, the notebooks and `/feedback` never build it, so only
-`/score` puts tensors on the device. With
-`serving.replicas` N > 1 it is N services behind a
-`serving.replicas.ReplicaFront`, every replica's bank on that one
-device: tenants home by crc32, feedback reaches every replica before
+The bank service is built on the first `/score` over every visible
+device of the server's device type (default the card; there is no
+fallback), as the reference hands its bank every device:
+`serving.bank_shard` "sharded" places tenants over them by crc32, and
+"auto" keeps them on the first. The dashboards, the data mount, the
+notebooks and `/feedback` never build it, so only `/score` puts tensors
+on a device. With `serving.replicas` N > 1 it is N services behind a
+`serving.replicas.ReplicaFront`, every replica's bank over those
+devices: tenants home by crc32, feedback reaches every replica before
 its next score, and a downed replica's tenants re-home.
 """
 
@@ -49,6 +51,7 @@ import torch
 
 from onix_torch.config import OnixConfig
 from onix_torch.device import resolve_device
+from onix_torch.parallel import mesh as mesh_mod
 from onix_torch.oa.feedback import append_feedback
 
 UI_ROOT = pathlib.Path(__file__).parent / "ui"
@@ -728,6 +731,11 @@ def _make_service(cfg: OnixConfig, device: torch.device):
         except ValueError:          # traversal-shaped name
             return None
 
+    # The bank gets every visible device of the server's device type, so
+    # that serving.bank_shard can place tenants over them ("auto" stays
+    # single: no device type has a measured crossover).
+    devices = mesh_mod.visible_devices(device)
+
     def one_service() -> BankService:
         bank = ModelBank(
             capacity=cfg.serving.bank_capacity, form=cfg.serving.bank_form,
@@ -736,7 +744,7 @@ def _make_service(cfg: OnixConfig, device: torch.device):
             filter_loader=filter_loader, epoch_loader=epoch_loader,
             serve_form=cfg.serving.serve_form,
             degrade_form_fallback=cfg.serving.degrade_form_fallback,
-            device=device, shard_form=cfg.serving.bank_shard,
+            devices=devices, shard_form=cfg.serving.bank_shard,
             prefetch_depth=cfg.serving.prefetch_depth)
         return BankService(
             bank, max_batch_requests=cfg.serving.max_batch_requests,
@@ -746,7 +754,7 @@ def _make_service(cfg: OnixConfig, device: torch.device):
 
     if cfg.serving.replicas > 1:
         # N replicas behind one front, each with its own bank and winner
-        # cache on the server's one device; all read this process's
+        # cache over the server's devices; all read this process's
         # model store, so each replica's disk-epoch probe works as is.
         from onix_torch.serving.replicas import ReplicaFront
         return ReplicaFront([one_service()

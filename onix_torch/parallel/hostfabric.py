@@ -22,7 +22,10 @@ domain"):
   (`lease_s` since the last beat) expires — a SIGKILLed worker, a
   worker that took an injected `host:death`, and a worker frozen past
   its own collective watchdog all converge to the same lease-expiry
-  signal.
+  signal. A worker that has not beaten yet in its generation is still
+  starting (importing torch on a loaded host can outlast a lease): it
+  is dead only once its process has exited, or once `START_GRACE_S`
+  has passed since the spawn.
 - On death the coordinator SIGKILLs the survivors (they are wedged in
   a collective with a dead peer anyway), quarantines the dead host's
   shard assignment with a sidecar (resilience.quarantine_file +
@@ -83,6 +86,10 @@ _FATAL_RCS = {3: "topology refused", 4: "checkpoint shard load failed",
 # twice) or was killed by a signal (negative): the coordinator waits for
 # the lease to expire. Any other non-zero exit is a FabricError.
 _DEATH_RCS = {81, 82, 83}
+#: Seconds a spawned worker may take to write its first beat (start-up:
+#: importing torch, the card's context) before it counts as dead; apart
+#: from `lease_s`, which runs from its first beat.
+START_GRACE_S = 120.0
 
 
 class FabricError(RuntimeError):
@@ -664,6 +671,7 @@ class FabricCoordinator:
         self.restarts = 0
         self.rebalanced = False
         self._procs: dict[int, subprocess.Popen] = {}
+        self._spawn_ts = 0.0
         self._generation = 0
         self._resume_sweeps: list[int] = []
         self._worker_counters: dict[str, int] = {}
@@ -831,6 +839,7 @@ class FabricCoordinator:
         (self.workdir / "log").mkdir(exist_ok=True)
         procs = {}
         cards = _visible_cards()
+        self._spawn_ts = time.time()
         for i in range(self.n_hosts):
             env = dict(os.environ)
             if self.platform == "cuda":
@@ -861,10 +870,13 @@ class FabricCoordinator:
     def _monitor(self) -> int | None:
         """Poll heartbeats + worker exits until the generation either
         completes (returns None) or a host's lease expires (returns
-        the dead host id). Fatal worker exit codes raise."""
+        the dead host id). Fatal worker exit codes raise. A host that
+        has not beaten in this generation is still starting: it is dead
+        once its process has exited or `START_GRACE_S` has passed, never
+        by its lease."""
         from onix_torch import checkpoint as ckpt
 
-        spawn_ts = time.time()
+        spawn_ts = self._spawn_ts if self.spawn else time.time()
         deadline = time.monotonic() + self.timeout_s
         beats_seen: dict[int, int] = {}
         poll_s = min(self.beat_s, 0.25)
@@ -905,9 +917,15 @@ class FabricCoordinator:
                     continue        # finished cleanly — never "dead"
                 hb_path = _hb_path(self.workdir, i)
                 try:
-                    last = max(hb_path.stat().st_mtime, spawn_ts)
+                    last = hb_path.stat().st_mtime
                 except OSError:
-                    last = spawn_ts
+                    last = None
+                if last is None or last < spawn_ts:
+                    # No beat of this generation's worker yet: starting.
+                    if rcs.get(i) is not None \
+                            or now - spawn_ts > START_GRACE_S:
+                        return i
+                    continue
                 if now - last > self.lease_s:
                     return i
                 beat = _read_heartbeat(hb_path)

@@ -11,9 +11,9 @@ thread.
 The fit is the port's sharded engine over the resolved device
 (`ShardedGibbsLDA`: kernel K1 for every block step), and the score
 stage is `select_suspicious_events` (on the card, "auto" routes its
-table scan to kernel K2). `dp = 0` and `dp = 1` mean the one device
-(the reference's `dp = 0` takes every visible device); `dp > 1` fits
-over a (dp, 1) mesh of the device's type, and `fit_hosts > 1` in the
+table scan to kernel K2). `dp = 0` fits over every visible device of
+the device's type, as the reference's does; `dp > 0` over a (dp, 1)
+mesh of that type (one card: the 1×1 fast path), and `fit_hosts > 1` in the
 host fabric's worker processes (`parallel/hostfabric.py`, cold fits
 only).
 
@@ -246,8 +246,9 @@ def run_campaign(n_events: int, datatypes=DATATYPES, n_hosts: int | None = None,
     the SAME stages on the driver thread, so the two arms' artifacts
     are identical (deterministic in seed) and the accounting delta is
     pure orchestration. `merge_form`/`merge_staleness` select the
-    sharded engine's count-merge arm (LDAConfig r14 gate). `dp=0` and
-    `dp=1` fit on the one device, `dp > 1` over a (dp, 1) mesh;
+    sharded engine's count-merge arm (LDAConfig r14 gate). `dp=0` fits
+    over every visible device of `device`'s type, `dp > 0` over a (dp,
+    1) mesh;
     `fit_hosts > 1` runs each datatype's cold fit in that many host
     fabric workers (`rebalance` re-shards onto the survivors when one
     dies).
@@ -307,7 +308,7 @@ def run_campaign(n_events: int, datatypes=DATATYPES, n_hosts: int | None = None,
     if n_anomalies is None:
         n_anomalies = _default_anomalies(n_events)
 
-    mesh = make_mesh(dp=max(dp, 1), mp=1, device=dev)
+    mesh = make_mesh(dp=dp if dp > 0 else None, mp=1, device=dev)
     cfg = LDAConfig(n_topics=n_topics, n_sweeps=n_sweeps,
                     burn_in=max(1, n_sweeps // 2),
                     block_size=1 << 17, seed=seed, n_chains=n_chains,

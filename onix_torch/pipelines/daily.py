@@ -4,7 +4,8 @@ an own copy of `onix/pipelines/daily.py` over the port's `checkpoint`,
 reference's bytes for the same body (the same `_canonical` and sha256
 stamp), so either package reads the other's ledger. `device` (default
 "cuda", raising without a card) is where every day's campaign runs;
-`dp > 1` fits over a mesh of that many devices and `fit_hosts > 1` in
+`dp` passes to the campaign (`dp = 0`: every visible device of the
+device's type; `dp > 1`: a mesh of that many) and `fit_hosts > 1` fits in
 the host fabric's worker processes (cold fits only: it needs
 `force_cold`).
 

@@ -7,9 +7,12 @@ budget) in which every sweep steps each token block with ONE call of
 kernel K1 for all the class's lanes (K1's lane form), and each tenant's
 table scan through `select_suspicious_events` (kernel K2 on the card
 under "auto"). `device` (default "cuda", raising without a card) is
-where the refit and the scans run; `dp > 1` raises until slice 5b. The
-manifest's `dispatches` lists every class refit (its lanes, sweeps and
-blocks), from which the K1 calls of a run follow.
+where the refit and the scans run; `dp > 1` lays each class's lanes
+over a (dp, 1) mesh of that device's type (`parallel/fleet_shard`),
+and each distinct device of the mesh makes one K1 call a token block
+for the lanes it holds. The manifest's `dispatches` lists every class
+refit (its lanes, sweeps, blocks and distinct devices), from which the
+K1 calls of a run follow.
 
 Per-tenant lifecycle state scales with it (every mechanism is the r19
 discipline, sharded by tenant):
@@ -73,13 +76,17 @@ import time
 
 import numpy as np
 
-from onix_torch import checkpoint, not_ported
+import torch
+
+from onix_torch import checkpoint
 from onix_torch.config import DATATYPES, DailyConfig, LDAConfig
 from onix_torch.convert import fleet_class_from_numpy
 from onix_torch.device import resolve_device
 from onix_torch.models import fleet_gibbs
 from onix_torch.models.lda_gibbs import LL_PARITY_BAND
 from onix_torch.parallel import fleet_shard
+from onix_torch.parallel import mesh as mesh_mod
+from onix_torch.parallel.sharded_gibbs import device_groups
 from onix_torch.pipelines.campaign import (_prepare, _winner_pairs,
                                            map_phi_prior, phi_topic_drift,
                                            vocab_word_keys)
@@ -166,16 +173,47 @@ def _persisted_meta(models_dir, name: str) -> dict | None:
         return None
 
 
+def _refit_lanes_on_devices(program, sc, cfg: LDAConfig, mesh,
+                            device) -> dict:
+    """One class's fleet refit over `mesh`: its lanes padded and split
+    into the dp positions' runs (`fleet_shard.shard_class`), every
+    distinct device refitting the runs it holds in one pass (one K1
+    call a token block for all its lanes, each lane with its own
+    seeds), the outputs put back in lane order and the dead lanes'
+    outputs dropped by lane index. Lanes are independent, so a lane's bits do
+    not depend on the mesh."""
+    runs = fleet_shard.shard_class(sc, mesh, k_topics=cfg.n_topics)
+    per = runs[0][1]["z0"].shape[0]         # lanes a position
+    outs, order = [], []
+    for dev, qs in device_groups([d if d is not None else device
+                                  for d, _ in runs]):
+        arrays = {name: np.concatenate([runs[q][1][name] for q in qs])
+                  for name in fleet_shard.LANE_ARRAYS}
+        a = fleet_class_from_numpy(arrays, dev)
+        outs.append(program(
+            a["z0"], a["docs"], a["words"], a["mask"], a["fb_docs"],
+            a["fb_words"], a["fb_weights"],
+            fleet_gibbs.LaneNoise(a["keys"], dev)))
+        order.extend(q * per + i for q in qs for i in range(per))
+    back = torch.from_numpy(np.argsort(np.asarray(order), kind="stable"))
+    theta, phi, ll0, ll = (torch.cat([o[j].cpu() for o in outs])[back]
+                           for j in range(4))
+    return fleet_gibbs.unstack_results(sc, theta, phi, ll0, ll)
+
+
 def _refit_classes(classes, cfg: LDAConfig, programs: dict, *,
-                   batched: bool, device, dispatches: list) -> dict:
+                   batched: bool, device, dispatches: list,
+                   mesh=None) -> dict:
     """Run every shape class under ONE sweep budget and return the
     merged per-tenant results. `batched=True` is the fleet arm (one
-    pass per class: one K1 call a token block for all its lanes);
-    `batched=False` is the sequential-supervisor arm — the SAME
-    per-lane refit run once per tenant, which is the O(N) wall this
-    module exists to remove and the bit-identity reference. Each class
-    refit appends {class, lanes, sweeps, blocks, batched} to
-    `dispatches`."""
+    pass per class over `mesh`, or on `device` without one: one K1 call
+    a token block for each distinct device's lanes); `batched=False`
+    is the sequential-supervisor arm — the SAME per-lane refit run once
+    per tenant on `device`, which is the O(N) wall this module exists
+    to remove and the bit-identity reference. Each class refit appends
+    {class, lanes, sweeps, blocks, devices, batched} to `dispatches`."""
+    n_devices = (len(device_groups(mesh.grid[:, 0])) if mesh is not None
+                 else 1)
     results: dict[str, dict] = {}
     for sc in classes:
         d_pad, v_pad, _ = sc.key
@@ -187,31 +225,29 @@ def _refit_classes(classes, cfg: LDAConfig, programs: dict, *,
             programs[pkey] = make(cfg, n_docs=d_pad, n_vocab=v_pad,
                                   device=device)
         program = programs[pkey]
-        a = fleet_class_from_numpy(fleet_shard.shard_class(sc, None),
-                                   device)
         dispatches.append({"class": str(sc.key), "lanes": sc.n_lanes,
                            "sweeps": cfg.n_sweeps,
                            "blocks": int(sc.docs.shape[1]),
+                           "devices": n_devices if batched else 1,
                            "batched": bool(batched)})
         if batched:
+            results.update(_refit_lanes_on_devices(program, sc, cfg, mesh,
+                                                   device))
+            continue
+        a = fleet_class_from_numpy(
+            {name: getattr(sc, name) for name in fleet_shard.LANE_ARRAYS},
+            device)
+        for i, t in enumerate(sc.tenants):
             theta, phi, ll0, ll = program(
-                a["z0"], a["docs"], a["words"], a["mask"], a["fb_docs"],
-                a["fb_words"], a["fb_weights"],
-                fleet_gibbs.LaneNoise(a["keys"], device))
-            results.update(fleet_gibbs.unstack_results(sc, theta, phi,
-                                                       ll0, ll))
-        else:
-            for i, t in enumerate(sc.tenants):
-                theta, phi, ll0, ll = program(
-                    a["z0"][i], a["docs"][i], a["words"][i], a["mask"][i],
-                    a["fb_docs"][i], a["fb_words"][i], a["fb_weights"][i],
-                    fleet_gibbs.LaneNoise(a["keys"][i:i + 1], device))
-                results[t.name] = {
-                    "theta": theta.cpu().numpy()[:t.n_docs],
-                    "phi_wk": phi.cpu().numpy()[:t.n_vocab],
-                    "ll_initial": float(ll0),
-                    "ll_final": float(ll),
-                }
+                a["z0"][i], a["docs"][i], a["words"][i], a["mask"][i],
+                a["fb_docs"][i], a["fb_words"][i], a["fb_weights"][i],
+                fleet_gibbs.LaneNoise(a["keys"][i:i + 1], device))
+            results[t.name] = {
+                "theta": theta.cpu().numpy()[:t.n_docs],
+                "phi_wk": phi.cpu().numpy()[:t.n_vocab],
+                "ll_initial": float(ll0),
+                "ll_final": float(ll),
+            }
     return results
 
 
@@ -238,17 +274,18 @@ def run_fleet(n_days: int, n_tenants: int, root: str | pathlib.Path, *,
     of (tenant, day) pairs whose feed is declared poisoned (the chaos
     hook). `batched=False` runs the sequential-supervisor arm: same
     per-lane refit, one pass per tenant — bit-identical artifacts,
-    O(N) fit wall. `bank` (a serving ModelBank) receives every accepted
+    O(N) fit wall. `dp > 1` lays the fleet arm's lanes over a (dp, 1)
+    mesh of `device`'s type (`mesh.make_mesh`), bit-identical to dp =
+    1. `bank` (a serving ModelBank) receives every accepted
     model with its lineage epoch. `device` is the card by default
     (raises without one); "cpu" only when the caller names it.
 
     Resumable per (tenant, day): rerunning against the same root skips
     every cell with a verified ledger-shard entry. Returns the fleet
     manifest (also written to `out_path`)."""
-    if dp > 1:
-        raise not_ported(f"a fleet refit over a dp={dp} mesh",
-                         "slice 5b (the collective-free placements)")
     dev = resolve_device(device)
+    mesh = (mesh_mod.make_mesh(dp=dp, mp=1, device=dev) if dp > 1
+            else None)
     daily = daily if daily is not None else DailyConfig()
     daily.validate()
     if datatype not in DATATYPES:
@@ -419,7 +456,8 @@ def run_fleet(n_days: int, n_tenants: int, root: str | pathlib.Path, *,
                             padding = fleet_gibbs.padding_stats(classes)
                         results.update(_refit_classes(
                             classes, wcfg, programs, batched=batched,
-                            device=dev, dispatches=dispatches))
+                            device=dev, dispatches=dispatches,
+                            mesh=mesh))
                         form.update({t.name: "warm" for t in warm_tds})
                     if cold_tds:
                         counters.inc("fleet.cold_tenant_days",
@@ -431,7 +469,8 @@ def run_fleet(n_days: int, n_tenants: int, root: str | pathlib.Path, *,
                             padding = fleet_gibbs.padding_stats(classes)
                         results.update(_refit_classes(
                             classes, cfg, programs, batched=batched,
-                            device=dev, dispatches=dispatches))
+                            device=dev, dispatches=dispatches,
+                            mesh=mesh))
                         form.update({t.name: "cold" for t in cold_tds})
 
                     # Per-tenant drift gates: warm lanes past the band
@@ -476,7 +515,8 @@ def run_fleet(n_days: int, n_tenants: int, root: str | pathlib.Path, *,
                             day=day)
                         results.update(_refit_classes(
                             classes, cfg, programs, batched=batched,
-                            device=dev, dispatches=dispatches))
+                            device=dev, dispatches=dispatches,
+                            mesh=mesh))
                         form.update({t: "cold_drift" for t in drifted})
             fit_wall_day = time.perf_counter() - t_fit
             fit_wall_s += fit_wall_day

@@ -6,8 +6,10 @@ multi-chip doc-sharded Gibbs"; configs[1]/[2] are the DNS and proxy
 paths, run here at the same scale (`datatype=`). The run goes through
 the production stages: columnar synthesis (`SYNTH_ARRAYS`) → packed
 word creation (`*_words_from_arrays`) → integer corpus build
-(`build_corpus`) → the sharded engine on a 1×1 mesh (`ShardedGibbsLDA`,
-kernel K1 for every block step) → the table scan and bottom-k
+(`build_corpus`) → the sharded engine over a (dp, 1) mesh of every
+visible device of the run's device type (`ShardedGibbsLDA`, kernel K1
+for every block step; one card is the 1×1 fast path) → the table scan
+and bottom-k
 (`select_suspicious_events`, the `*_fast` dispatchers; kernel K2 when
 the serve gate resolves "fused"), with per-stage walls in a manifest.
 
@@ -28,7 +30,9 @@ so. `fit_hosts > 1` fits in that many host-fabric worker processes
 (`parallel/hostfabric.py`, one card each: a host with fewer cards
 refuses), `rebalance` re-shards onto the survivors when one dies; the
 manifest's `orchestration.fit_fabric` is the fabric's manifest. The
-in-process fit runs on a 1×1 mesh of `device`. `generator="sessions"` takes
+in-process fit runs over every visible device of `device`'s type, as the
+reference's does, and the manifest's `mesh` and `devices` name them.
+`generator="sessions"` takes
 the independent session generator (`synth2.py`) for the day and every
 streamed chunk.
 """
@@ -186,7 +190,8 @@ def run_scale(n_events: int, n_hosts: int | None = None,
                                       if resume_dir is not None else 0))
     fit_ckpt_dir = (pathlib.Path(resume_dir) / "fit_ckpt"
                     if resume_dir is not None else None)
-    mesh = make_mesh(dp=1, mp=1, device=dev)
+    # Every visible device of the device's type on the data axis.
+    mesh = make_mesh(dp=None, mp=1, device=dev)
     model = ShardedGibbsLDA(cfg, corpus.n_vocab, mesh=mesh)
     saved_model = ckpt.load("model") if ckpt is not None else None
     fit_walls = None

@@ -23,8 +23,10 @@ proofs:
   host.
 
 Every entry point takes `device` (default the card; nothing picks
-another). A bank over more than one device (`spec.devices > 1`) raises
-for slice 5b.
+another). `spec.devices` > 0 builds each bank over the first
+`spec.devices` visible devices of that device's type
+(`mesh.visible_devices`), with the placement `spec.shard_form`; asking
+for more than are visible raises, as the reference's harness does.
 """
 
 from __future__ import annotations
@@ -36,8 +38,8 @@ import time
 import numpy as np
 import torch
 
-from onix_torch import not_ported
 from onix_torch.device import resolve_device
+from onix_torch.parallel import mesh as mesh_mod
 from onix_torch.serving.model_bank import (BankRefusal, BankService,
                                            ModelBank, ScoreRequest,
                                            TenantModel)
@@ -70,10 +72,10 @@ class HarnessSpec:
     # serving.request_deadline_ms equivalents): 0 = disabled.
     max_queue_depth: int = 0
     request_deadline_ms: float = 0.0
-    # Scale-out: `devices` > 1 (a bank over several devices) raises for
-    # slice 5b; `replicas` > 1 stands up N services behind a
-    # ReplicaFront on the one device; `prefetch_depth`/`host_capacity`
-    # exercise the host-RAM residency tier.
+    # Scale-out: `devices` > 0 builds the bank over that many visible
+    # devices with `shard_form` routed through select_shard_form;
+    # `replicas` > 1 stands up N services behind a ReplicaFront;
+    # `prefetch_depth`/`host_capacity` exercise the host-RAM tier.
     devices: int = 0
     shard_form: str = "auto"
     replicas: int = 1
@@ -131,15 +133,22 @@ def make_stream(spec: HarnessSpec) -> list[ScoreRequest]:
 def build_service(spec: HarnessSpec, models: dict[str, TenantModel],
                   form: str = "auto", serve_form: str = "auto",
                   device: str | torch.device = "cuda"):
-    """One service, or the scale-out shapes the spec asks for: the
+    """One service, or the scale-out shapes the spec asks for: a bank
+    over `spec.devices` visible devices of `device`'s type, the
     host-RAM tier (host_capacity / prefetch_depth — tenants arrive
     loader-backed so the tier actually churns) and/or N replicas behind
-    a ReplicaFront (spec.replicas > 1), every bank on `device`."""
-    if spec.devices > 1:
-        raise not_ported(f"a harness bank over {spec.devices} devices "
-                         "(spec.devices > 1)",
-                         "slice 5b (the collective-free placements)")
+    a ReplicaFront (spec.replicas > 1). Fewer visible devices than
+    `spec.devices` raises ValueError; it never takes fewer."""
     dev = resolve_device(device)
+    devices = None
+    if spec.devices:
+        seen = mesh_mod.visible_devices(dev)
+        if spec.devices > len(seen):
+            hint = ("set xla_force_host_platform_device_count"
+                    if dev.type == "cpu" else "a host with that many cards")
+            raise ValueError(f"spec.devices={spec.devices} > available "
+                             f"{len(seen)} ({hint})")
+        devices = seen[:spec.devices]
     cap = spec.capacity or spec.n_tenants
     tiered = bool(spec.host_capacity or spec.prefetch_depth)
 
@@ -149,7 +158,7 @@ def build_service(spec: HarnessSpec, models: dict[str, TenantModel],
     def _one():
         bank = ModelBank(
             capacity=cap, form=form, serve_form=serve_form, device=dev,
-            shard_form=spec.shard_form,
+            devices=devices, shard_form=spec.shard_form,
             prefetch_depth=spec.prefetch_depth,
             host_capacity=spec.host_capacity,
             loader=(lambda t: models.get(t)) if tiered else None,

@@ -35,8 +35,23 @@ propagate. On the card the ladder has no rung: its rung is plain
 PyTorch in place of the kernel, so a failed K2 wave propagates whatever
 the flag says. Building or loading K2's library is not a wave either: a
 bank that may take the fused form on the card loads it when it is
-constructed, and a failure raises there. `bank_shard="sharded"` and
-more than one device raise NotImplementedError naming slice 5b.
+constructed (once, for all its devices), and a failure raises there.
+
+Placement over several devices (the reference's tenant-hash sharding):
+`devices` lists the candidate devices, in order, and may name one
+device more than once, so that several homes share one card. The form
+("single" | "sharded", `select_shard_form`) resolves at the first score
+and freezes. Sharded, a tenant's home is `crc32(tenant) % n_devices`,
+the same in every process with no coordination; its shape class's bank
+lives on that device, keyed by (class, home), and its waves run there.
+With more than one device a batch runs in two phases: every (class,
+home) wave is staged and launched on its device without a fetch
+(`bank.wave` span, `bank.wave.d{i}`), then the winners are fetched in
+dispatch order (`bank.fetch_wait_us`). On a card a wave's inputs go
+through pinned host memory with non-blocking copies, so staging a wave
+does not wait for an earlier wave's K2. No wave needs a collective;
+once per shape, the first wave is checked for it
+(`check_collective_free`).
 
 Residency: each shape class holds `capacity` resident slots. Admission
 stages all newly needed tenants of a wave on the host and ships ONE
@@ -53,12 +68,12 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
+import zlib
 from collections import OrderedDict
 
 import numpy as np
 import torch
 
-from onix_torch import not_ported
 from onix_torch.config import resolve_form_gate
 from onix_torch.device import resolve_device
 from onix_torch.feedback.filter import (FILTER_FLOOR, FilterTables,
@@ -103,17 +118,117 @@ def check_bank_form(form: str) -> None:
                       default="gather")
 
 
-def select_shard_form(form: str) -> str:
-    """The bank placement form (ONIX_BANK_SHARD > explicit >
-    "single"). Tenant-hash placement over several cards waits for
-    slice 5b: "sharded" raises NotImplementedError."""
-    got = resolve_form_gate(gate="bank shard", choices=("single", "sharded"),
-                            explicit=form, env_var="ONIX_BANK_SHARD",
-                            default="single")
-    if got == "sharded":
-        raise not_ported("serving.bank_shard='sharded'",
-                         "slice 5b (the collective-free placements)")
-    return got
+# Measured crossover for the sharded placement: registered tenants above
+# which spreading the shape-class banks over several devices beats one,
+# keyed by device type. Empty, as in the reference: no device type has
+# a measured row (one card cannot measure a cross-device crossover), so
+# "auto" resolves single everywhere. The forms give the same winners,
+# so pinning "sharded" is always safe.
+_BANK_SHARD_MIN_TENANTS: dict[str, int] = {}
+
+
+def select_shard_form(form: str, n_tenants: int, n_devices: int,
+                      device: str | torch.device = "cuda") -> str:
+    """The bank placement form: "single" (every tenant on the first
+    device) or "sharded" (tenant-hash placement over the devices).
+    ONIX_BANK_SHARD > explicit > the measured `_BANK_SHARD_MIN_TENANTS`
+    row of `device`'s type > "single". A bank resolves it once, at its
+    first score, and keeps it: placement keys residency."""
+    def measured() -> str | None:
+        min_tenants = _BANK_SHARD_MIN_TENANTS.get(torch.device(device).type)
+        if min_tenants is not None and n_devices >= 2 \
+                and n_tenants >= min_tenants:
+            return "sharded"
+        return None
+
+    return resolve_form_gate(gate="bank shard", choices=("single", "sharded"),
+                             explicit=form, env_var="ONIX_BANK_SHARD",
+                             measured=measured, default="single")
+
+
+#: Namespaces of the dispatcher's collective operations
+#: (`torch.distributed`'s c10d ops and the functional collectives).
+_COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional", "c10d_functional")
+
+
+def _on(t: torch.Tensor, dev: torch.device) -> bool:
+    """Whether tensor `t` lies on `dev` (a CPU device's index names a
+    home, not memory: every CPU tensor lies on every CPU device)."""
+    if dev.type == "cpu":
+        return t.device.type == "cpu"
+    return t.device == dev
+
+
+def _wave_tensors(args, row_len) -> list:
+    """Every tensor one wave hands to K2 or the xla form."""
+    out = [a for a in args if isinstance(a, torch.Tensor)]
+    filt = args[7]
+    if filt is not None:
+        for fam in ("word_suppress", "word_boost", "pair_suppress",
+                    "pair_boost"):
+            out.extend(getattr(filt, fam))
+        out.append(filt.boost_scale)
+    return out + [row_len]
+
+
+def check_collective_free(launch, args, row_len, device: torch.device,
+                          want_launches: int):
+    """Run one wave's `launch()` and check the sharded bank's contract
+    for it, the port's form of the reference's HLO scan
+    (`assert_collective_free`): every tensor the wave hands to K2 (or
+    to the xla form) lies on the shard's device, the call makes
+    `want_launches` K2 launches (one on a card, none on the CPU, whose
+    K2 is its plain version), and no collective operation is dispatched
+    while it runs. Returns `launch()`'s result."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    off = [tuple(t.shape) for t in _wave_tensors(args, row_len)
+           if not _on(t, device)]
+    if off:
+        raise AssertionError(f"sharded bank wave hands K2 tensors of "
+                             f"shapes {off} that are not on its device "
+                             f"{device}")
+
+    class _Collectives(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen: list[str] = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace in _COLLECTIVE_NAMESPACES:
+                self.seen.append(func.name())
+            return func(*args, **(kwargs or {}))
+
+    before = fused_serve.launches
+    with _Collectives() as mode:
+        res = launch()
+    made = fused_serve.launches - before
+    if mode.seen:
+        raise AssertionError(f"sharded bank wave dispatched a collective "
+                             f"({', '.join(sorted(set(mode.seen)))}): "
+                             "its waves must be independent one-device "
+                             "calls")
+    if made != want_launches:
+        raise AssertionError(f"sharded bank wave made {made} K2 launches, "
+                             f"not {want_launches}")
+    return res
+
+
+def _placed(dev: torch.device) -> torch.device:
+    """`dev` with its card index ("cuda" is the current card)."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _staged(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """Host array `a` as a tensor on `dev`. To a card it goes through
+    pinned memory with a non-blocking copy, so the host does not wait
+    for the work already queued on the device."""
+    t = torch.from_numpy(a)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -197,14 +312,17 @@ class ScoreRequest:
 
 
 class _Shard:
-    """One shape class's resident bank: [C, D_pad, K] / [C, V_pad, K]
-    tensors on the bank's device plus the tenant→slot LRU
-    bookkeeping."""
+    """One (shape class, home device)'s resident bank: [C, D_pad, K] /
+    [C, V_pad, K] tensors on its device, plus the tenant→slot
+    LRU bookkeeping. `device_index` is the home's index into the
+    bank's devices (0 in the single form)."""
 
     def __init__(self, d_pad: int, v_pad: int, k: int, capacity: int,
-                 device: torch.device):
+                 device: torch.device, device_index: int = 0):
         self.d_pad, self.v_pad, self.k = d_pad, v_pad, k
         self.capacity = capacity
+        self.device = device
+        self.device_index = device_index
         self.theta = torch.zeros((capacity, d_pad, k), dtype=torch.float32,
                                  device=device)
         self.phi = torch.zeros((capacity, v_pad, k), dtype=torch.float32,
@@ -227,8 +345,10 @@ class ModelBank:
     picks another). `form` is the validated bank form name, which
     selects nothing; `serve_form` is the configured serve gate, resolved
     per wave; `degrade_form_fallback` arms the ladder on a CPU bank
-    (module docstring). `devices` with more than one entry raises, as does
-    `shard_form` "sharded"."""
+    (module docstring). `devices` (default: `device` alone) are the
+    homes of the sharded form, in order, all of one type, a device
+    named as often as it is to hold homes; `shard_form` is the
+    configured placement gate, resolved at the first score."""
 
     def __init__(self, capacity: int = 64, form: str = "auto",
                  loader=None, bulk_loader=None, host_capacity: int = 0,
@@ -243,11 +363,22 @@ class ModelBank:
             raise ValueError("host_capacity must be >= 0 (0 = unbounded)")
         if prefetch_depth < 0:
             raise ValueError("prefetch_depth must be >= 0 (0 = off)")
-        if devices is not None and len(devices) > 1:
-            raise not_ported("a model bank over several devices",
-                             "slice 5b (the collective-free placements)")
-        self.shard_form = select_shard_form(shard_form)
-        self.device = resolve_device(devices[0] if devices else device)
+        self.devices = ([_placed(resolve_device(d)) for d in devices]
+                        if devices else None)
+        self.device = (self.devices[0] if self.devices
+                       else resolve_device(device))
+        if self.devices and len({d.type for d in self.devices}) > 1:
+            raise ValueError(f"a bank's devices are all of one type, got "
+                             f"{[str(d) for d in self.devices]}")
+        # The placement resolves at the first score and freezes; checking
+        # the configured name now makes a typo (or a bad env override)
+        # fail at construction.
+        self.shard_form = shard_form
+        self._resolved_shard: str | None = None
+        select_shard_form(shard_form, 0, self.n_devices(), self.device)
+        #: Shape keys whose first sharded wave passed
+        #: `check_collective_free` (once a shape).
+        self.collective_checked: set[tuple] = set()
         # The serve gate resolves per wave; resolving it once here makes
         # a typo'd form (or env override) fail at construction.
         check_bank_form(form)
@@ -257,8 +388,8 @@ class ModelBank:
             serve_form, 1 << 62, self.device) == "fused"
         if may_fuse and self.device.type == "cuda":
             # Some wave may take K2: its library is built and loaded
-            # now, so a build or load failure raises here and never
-            # reaches the ladder.
+            # now, once for every device of the bank, so a build or
+            # load failure raises here and never reaches the ladder.
             fused_serve._library()
         self.capacity = capacity
         self._loader = loader
@@ -268,7 +399,9 @@ class ModelBank:
         self.host_capacity = host_capacity
         self._models: OrderedDict[str, TenantModel] = OrderedDict()
         self._loader_backed: set[str] = set()
-        self._shards: dict[tuple[int, int, int], _Shard] = {}
+        # Keyed (D_pad, V_pad, K, home index); the home is 0 in the
+        # single form.
+        self._shards: dict[tuple[int, int, int, int], _Shard] = {}
         # Host-tier prefetcher: decayed per-tenant request counts (the
         # Zipf demand estimate), the promote budget per batch boundary,
         # and the promoted-but-not-yet-referenced set the hit/waste
@@ -528,11 +661,15 @@ class ModelBank:
     def tier_stats(self) -> dict:
         """The per-tier residency picture `/bank/stats` exposes."""
         hbm_resident = sum(len(sh.lru) for sh in self._shards.values())
+        per_device: dict[str, int] = {}
+        for sh in self._shards.values():
+            key = f"d{sh.device_index}"
+            per_device[key] = per_device.get(key, 0) + len(sh.lru)
         return {
             "hbm": {"resident": hbm_resident,
                     "capacity_per_class": self.capacity,
                     "shape_classes": len(self._shards),
-                    "per_device_resident": {"d0": hbm_resident},
+                    "per_device_resident": per_device,
                     "hits": counters.get("bank.tier_hbm_hit")},
             "host": {"resident": len(self._models),
                      "loader_backed": len(self._loader_backed),
@@ -547,8 +684,8 @@ class ModelBank:
                          "waste": counters.get("bank.prefetch_waste"),
                          "failed": counters.get("bank.prefetch_failed"),
                          "tracked_tenants": len(self._demand)},
-            "shard_form": self.shard_form,
-            "n_devices": 1,
+            "shard_form": self._resolved_shard or "unresolved",
+            "n_devices": self.n_devices(),
         }
 
     def tenants(self) -> list[str]:
@@ -558,13 +695,41 @@ class ModelBank:
         return (pow2_bucket(m.n_docs, BANK_DOC_FLOOR),
                 pow2_bucket(m.n_vocab, BANK_VOCAB_FLOOR), m.n_topics)
 
+    # -- placement --------------------------------------------------------
+
+    def n_devices(self) -> int:
+        return len(self.devices) if self.devices else 1
+
+    def shard_form_resolved(self) -> str:
+        """The frozen placement form: the first call resolves the gate
+        against the tenants registered then (`bank.shard_form_*`);
+        later registrations never flip it."""
+        if self._resolved_shard is None:
+            self._resolved_shard = select_shard_form(
+                self.shard_form, n_tenants=len(self._models),
+                n_devices=self.n_devices(), device=self.device)
+            counters.inc(f"bank.shard_form_{self._resolved_shard}")
+        return self._resolved_shard
+
+    def _home_index(self, tenant: str) -> int:
+        """The tenant's home: crc32 placement, the same in every
+        process and replica. 0 in the single form or on one device."""
+        n = self.n_devices()
+        if n < 2 or self.shard_form_resolved() != "sharded":
+            return 0
+        return zlib.crc32(tenant.encode()) % n
+
+    def _device_at(self, index: int) -> torch.device:
+        return self.devices[index] if self.devices else self.device
+
     # -- residency --------------------------------------------------------
 
     def resident(self, tenant: str) -> bool:
         m = self._models.get(tenant)
         if m is None:
             return False
-        shard = self._shards.get(self._class_of(m))
+        shard = self._shards.get(self._class_of(m)
+                                 + (self._home_index(tenant),))
         return shard is not None and tenant in shard.lru
 
     def _ensure_resident(self, shard: _Shard, needed: list[str]) -> None:
@@ -609,9 +774,9 @@ class ModelBank:
             slots[i] = shard.free.pop()
             shard.lru[t] = int(slots[i])
             counters.inc("bank.admit")
-        idx = torch.from_numpy(slots).to(self.device)
-        shard.theta[idx] = torch.from_numpy(th).to(self.device)
-        shard.phi[idx] = torch.from_numpy(ph).to(self.device)
+        idx = _staged(slots, shard.device)
+        shard.theta[idx] = _staged(th, shard.device)
+        shard.phi[idx] = _staged(ph, shard.device)
         counters.inc("bank.h2d_transfers", 2)
         counters.inc("bank.h2d_bytes", th.nbytes + ph.nbytes)
 
@@ -636,8 +801,10 @@ class ModelBank:
                     max_results: int) -> list[TopK]:
         """Score a mixed-tenant request batch; returns a host-side TopK
         (numpy arrays) per request, in request order. Requests group by
-        shape class and split into residency-capacity waves; each wave
-        is ONE launch of K2."""
+        (shape class, home device) and split into residency-capacity
+        waves; each wave is ONE launch of K2 on its home device. With
+        the sharded form over several devices, every wave is launched
+        before any is fetched."""
         out: list[TopK | None] = [None] * len(requests)
         self._note_tiers(requests)
         self._note_demand(requests)
@@ -657,19 +824,42 @@ class ModelBank:
                     self._adopt(t, m)
                 self._trim_host_registry(
                     keep={req.tenant for req in requests})
-        by_class: dict[tuple, list[int]] = {}
+        by_group: dict[tuple, list[int]] = {}
         for i, req in enumerate(requests):
             m = self.model(req.tenant)
             self._validate(req, m)
-            by_class.setdefault(self._class_of(m), []).append(i)
-        for key, idxs in by_class.items():
+            key = self._class_of(m) + (self._home_index(req.tenant),)
+            by_group.setdefault(key, []).append(i)
+        sharded = self.shard_form_resolved() == "sharded" \
+            and self.n_devices() > 1
+        pending: list[tuple[TopK, list[int]]] = []
+        for key, idxs in by_group.items():
             shard = self._shards.get(key)
             if shard is None:
-                shard = self._shards[key] = _Shard(*key, self.capacity,
-                                                   self.device)
+                shard = self._shards[key] = _Shard(
+                    *key[:3], self.capacity, self._device_at(key[3]),
+                    device_index=key[3])
             for wave in self._waves(requests, idxs, shard.capacity):
-                self._score_wave(shard, requests, wave, out, tol=tol,
-                                 max_results=max_results)
+                if sharded:
+                    # Dispatch phase: stage and launch on the wave's
+                    # home device, no fetch, then the next wave.
+                    with telemetry.TRACER.span("bank.wave", device=key[3],
+                                               requests=len(wave)):
+                        res = self._dispatch_wave(shard, requests, wave,
+                                                  tol=tol,
+                                                  max_results=max_results)
+                    counters.inc(f"bank.wave.d{key[3]}")
+                    pending.append((res, wave))
+                else:
+                    self._score_wave(shard, requests, wave, out, tol=tol,
+                                     max_results=max_results)
+        for res, wave in pending:
+            # Fetch phase: drain in dispatch order; the wall blocked here
+            # is what the waves did not overlap.
+            t_fetch = time.perf_counter()
+            self._fetch_wave(res, wave, out)
+            counters.inc("bank.fetch_wait_us",
+                         int((time.perf_counter() - t_fetch) * 1e6))
         # Request-batch boundary: trim host copies, then prefetch.
         self._trim_host_registry()
         self._maybe_prefetch()
@@ -692,14 +882,15 @@ class ModelBank:
         if wave:
             yield wave
 
-    def _filter_rows(self, requests, wave: list[int],
-                     r_pad: int) -> FilterTables:
+    def _filter_rows(self, requests, wave: list[int], r_pad: int,
+                     dev: torch.device | None = None) -> FilterTables:
         """Stack the wave's per-tenant filter tables into FilterTables
-        with a leading [r_pad] request axis: per family a ([r_pad, F]
-        hi, [r_pad, F] lo) pair of sorted sentinel-padded rows, plus
-        the per-row boost scale. F is the pow2 cover of the wave's
-        largest table per family (floor FILTER_FLOOR)."""
+        on `dev` (default the bank's first device) with a leading [r_pad] request axis: per family a
+        ([r_pad, F] hi, [r_pad, F] lo) pair of sorted sentinel-padded
+        rows, plus the per-row boost scale. F is the pow2 cover of the
+        wave's largest table per family (floor FILTER_FLOOR)."""
         filts = [self._filters.get(requests[i].tenant) for i in wave]
+        dev = self.device if dev is None else dev
 
         def fam_rows(fam):
             f_pad = pow2_bucket(
@@ -713,8 +904,8 @@ class ModelBank:
                     keys = getattr(x, fam)
                     rows[row, :len(keys)] = keys
             hi, lo = split_key(rows.ravel())
-            return (half_tensor(hi.reshape(r_pad, f_pad), self.device),
-                    half_tensor(lo.reshape(r_pad, f_pad), self.device))
+            return (half_tensor(hi.reshape(r_pad, f_pad), dev),
+                    half_tensor(lo.reshape(r_pad, f_pad), dev))
 
         scale = np.ones(r_pad, np.float32)
         for row, x in enumerate(filts):
@@ -724,13 +915,15 @@ class ModelBank:
                             word_boost=fam_rows("word_boost"),
                             pair_suppress=fam_rows("pair_suppress"),
                             pair_boost=fam_rows("pair_boost"),
-                            boost_scale=torch.from_numpy(scale)
-                            .to(self.device))
+                            boost_scale=_staged(scale, dev))
 
-    def _score_wave(self, shard: _Shard, requests, wave: list[int],
-                    out: list, *, tol: float, max_results: int) -> None:
-        """One wave: admission, host-side staging, one K2 launch and ONE
-        winner fetch, under the `bank.score_wave` span."""
+    def _prepare_wave(self, shard: _Shard, requests, wave: list[int], *,
+                      tol: float, max_results: int):
+        """Admission and host-side staging of one wave onto its shard's
+        device: returns (args, row_len, serve form, shape key, requests,
+        events). The single path and the sharded dispatch phase both
+        take their wave from here, so they differ only in the device
+        the wave runs on."""
         needed: list[str] = []
         for i in wave:
             if requests[i].tenant not in needed:
@@ -756,10 +949,11 @@ class ModelBank:
             m[row, :n] = 1.0
             slots[row] = shard.lru[requests[i].tenant]
             lens[row] = n
+        dev = shard.device
         # A wave with no filtered tenant ships filt_rows=None: neither
         # form then runs a membership search.
         if any(requests[i].tenant in self._filters for i in wave):
-            filt_rows = self._filter_rows(requests, wave, r_pad)
+            filt_rows = self._filter_rows(requests, wave, r_pad, dev)
             filt_dims = tuple(int(getattr(filt_rows, f)[0].shape[1])
                               for f in ("word_suppress", "word_boost",
                                         "pair_suppress", "pair_boost"))
@@ -767,26 +961,58 @@ class ModelBank:
             filt_rows, filt_dims = None, None
         # The serve gate keys on n_pad, the PER-LANE event count each
         # row of the wave runs at: the unit of every consumer's entry.
-        serve = fused_serve.select_serve_form(self.serve_form, n_pad,
-                                              self.device)
+        serve = fused_serve.select_serve_form(self.serve_form, n_pad, dev)
         shape_key = (serve, shard.d_pad, shard.v_pad, shard.k,
                      r_pad, n_pad, max_results, filt_dims)
         self.compiled_shapes.add(shape_key)
-        dev = self.device
-
-        def t(a):
-            return torch.from_numpy(a).to(dev)
-        args = (shard.theta, shard.phi, t(slots), t(d), t(w), t(m), tol,
+        args = (shard.theta, shard.phi, _staged(slots, dev),
+                _staged(d, dev), _staged(w, dev), _staged(m, dev), tol,
                 filt_rows)
+        return args, _staged(lens, dev), serve, shape_key, r, sum(n_events)
+
+    def _score_wave(self, shard: _Shard, requests, wave: list[int],
+                    out: list, *, tol: float, max_results: int) -> None:
+        """One wave of the single path: staging, one K2 launch and ONE
+        winner fetch, under the `bank.score_wave` span."""
+        args, row_len, serve, shape_key, r, events = self._prepare_wave(
+            shard, requests, wave, tol=tol, max_results=max_results)
         with telemetry.TRACER.span("bank.score_wave", serve=serve,
-                                   requests=r,
-                                   events=sum(n_events)):
-            res = self._launch(args, serve, shape_key, t(lens),
+                                   requests=r, events=events):
+            res = self._launch(args, serve, shape_key, row_len,
                                max_results=max_results)
             counters.inc("bank.requests", r)
-            counters.inc("bank.events", sum(n_events))
-            scores = res.scores.cpu().numpy()     # ONE fetch per wave
-            indices = res.indices.cpu().numpy()
+            counters.inc("bank.events", events)
+            self._fetch_wave(res, wave, out)
+
+    def _dispatch_wave(self, shard: _Shard, requests, wave: list[int], *,
+                       tol: float, max_results: int) -> TopK:
+        """The sharded dispatch phase: staging and one K2 launch on the
+        wave's home device, without the fetch. The first wave of each
+        (shape, home) runs under `check_collective_free`."""
+        args, row_len, serve, shape_key, r, events = self._prepare_wave(
+            shard, requests, wave, tol=tol, max_results=max_results)
+
+        def launch():
+            return self._launch(args, serve, shape_key, row_len,
+                                max_results=max_results)
+        key = shape_key + (shard.device_index,)
+        if key in self.collective_checked:
+            res = launch()
+        else:
+            fused_here = serve == "fused" and shard.device.type == "cuda"
+            res = check_collective_free(launch, args, row_len,
+                                        shard.device,
+                                        want_launches=int(fused_here))
+            counters.inc("bank.collective_checks")
+            self.collective_checked.add(key)
+        counters.inc("bank.requests", r)
+        counters.inc("bank.events", events)
+        return res
+
+    @staticmethod
+    def _fetch_wave(res: TopK, wave: list[int], out: list) -> None:
+        scores = res.scores.cpu().numpy()     # ONE fetch per wave
+        indices = res.indices.cpu().numpy()
         for row, i in enumerate(wave):
             out[i] = TopK(scores=scores[row], indices=indices[row])
 

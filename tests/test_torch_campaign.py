@@ -36,7 +36,11 @@ from onix_torch.pipelines.synth import SYNTH_ARRAYS as T_SYNTH  # noqa: E402
 from onix_torch.utils import faults  # noqa: E402
 from onix_torch.utils.obs import OccupancyClock, counters  # noqa: E402
 
-TINY = dict(n_events=5000, n_sweeps=4, max_results=80, seed=3, device="cpu")
+# dp=1 pins the one-device fast path: the default, dp=0, fits over every
+# visible device (the conftest's 8), as the reference's does
+# (test_default_mesh_is_every_visible_device_like_the_reference).
+TINY = dict(n_events=5000, n_sweeps=4, max_results=80, seed=3, dp=1,
+            device="cpu")
 
 
 #: Counter namespaces these tests touch, in both packages' registries;
@@ -253,7 +257,7 @@ def test_campaign_smoke_chaos_resumes_to_identical(control, tmp_path):
 
 
 def test_async_arm_on_one_device_equals_sync(control):
-    asy = run_campaign(merge_form="async", merge_staleness=1, dp=1,
+    asy = run_campaign(merge_form="async", merge_staleness=1,
                        overlap=False, **TINY)
     assert asy["orchestration"]["merge_form"] == "async"
     assert asy["orchestration"]["merge_staleness"] == 1
@@ -279,6 +283,25 @@ def test_manifest_keeps_the_reference_keys():
     assert set(port["occupancy"]) == set(ref["occupancy"])
     assert port["per_datatype"]["flow"]["planted_in_bottom_k"] > 0
     assert ref["per_datatype"]["flow"]["planted_in_bottom_k"] > 0
+
+
+def test_default_mesh_is_every_visible_device_like_the_reference():
+    """`dp=0`: both packages fit over the conftest's 8 devices, a (8, 1)
+    mesh, off the fast path; the manifests keep the same keys and both
+    find planted events among the winners, as the pinned tests hold
+    them."""
+    kw = dict(n_events=1500, datatypes=("flow",), n_sweeps=2, n_topics=6,
+              max_results=20, seed=1, dp=0)
+    ref = jc.run_campaign(**kw)
+    port = run_campaign(**kw, device="cpu")
+    for m in (ref, port):
+        assert m["orchestration"]["mesh"] == {"dp": 8, "mp": 1}
+        assert m["orchestration"]["dp1_fast_path"] is False
+        assert m["per_datatype"]["flow"]["planted_in_bottom_k"] > 0
+    assert set(port["orchestration"]) == set(ref["orchestration"]) | {
+        "device"}
+    assert set(port["per_datatype"]["flow"]) == \
+        set(ref["per_datatype"]["flow"])
 
 
 def test_campaign_refusals(monkeypatch):

@@ -38,6 +38,7 @@ from onix.config import LDAConfig as JaxLDAConfig  # noqa: E402
 from onix.models import fleet_gibbs as jf  # noqa: E402
 from onix.models import lda_gibbs as jg  # noqa: E402
 from onix.parallel import fleet_shard as jshard  # noqa: E402
+from onix.parallel import mesh as jmesh  # noqa: E402
 from onix_torch import convert  # noqa: E402
 from onix_torch.config import DailyConfig, LDAConfig  # noqa: E402
 from onix_torch.models import fleet_gibbs as tf  # noqa: E402
@@ -206,16 +207,62 @@ def test_lane_pad_and_pad_class_lanes_equal_reference(n_lanes, n_shards):
 
 
 def test_shard_class_identity_on_one_device_and_refuses_a_mesh():
+    """One position: the class's own arrays. A dp 2 mesh (which raised
+    until slice 5b) gets two runs of two lanes, the padded fourth lane
+    dead; a mesh with an mp axis wider than one is refused."""
     rng = np.random.default_rng(3)
     sc = tf.stack_tenants([tenant_pair(u, 30, 90, 300, rng)[1]
                            for u in range(3)], k_topics=8, seed=0,
                           day=1)[0]
     for mesh in (None, make_mesh(1, 1, device="cpu")):
-        out = tshard.shard_class(sc, mesh)
+        ((dev, out),) = tshard.shard_class(sc, mesh, k_topics=8)
+        assert dev == (None if mesh is None else torch.device("cpu"))
         for name in tshard.LANE_ARRAYS:
             assert out[name] is getattr(sc, name)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tshard.shard_class(sc, make_mesh(2, 1, device="cpu"))
+    runs = tshard.shard_class(sc, make_mesh(2, 1, device="cpu"), k_topics=8)
+    assert [d for d, _ in runs] == [torch.device("cpu")] * 2
+    for name in tshard.LANE_ARRAYS:
+        got = np.concatenate([r[name] for _, r in runs])
+        np.testing.assert_array_equal(got[:3], getattr(sc, name))
+        assert runs[0][1][name].shape[0] == runs[1][1][name].shape[0] == 2
+    assert not runs[1][1]["mask"][1].any()
+    assert (runs[1][1]["z0"][1] == 8).all()
+    with pytest.raises(ValueError, match=r"\(dp, 1\) mesh"):
+        tshard.shard_class(sc, make_mesh(2, 2, device="cpu"), k_topics=8)
+
+
+def test_shard_class_over_dp4_equals_the_reference_shards():
+    """Each dp position's lanes are the data of the reference's
+    `addressable_shards` at that position (its `NamedSharding(P(dp))`
+    order); a 3-lane class pads to 4, its fourth lane dead-masked. The
+    lane keys differ in kind (the reference's PRNG keys, the port's
+    int64 seeds): their shapes agree and a dead lane's is zero."""
+    rng = np.random.default_rng(4)
+    pairs = [tenant_pair(u, 30, 90, 300, rng, k=8, fb=u % 2)
+             for u in range(3)]
+    jsc = jf.stack_tenants([a for a, _ in pairs], k_topics=8, seed=0,
+                           day=1)[0]
+    tsc = tf.stack_tenants([b for _, b in pairs], k_topics=8, seed=0,
+                           day=1)[0]
+    jm = jmesh.make_mesh(4, 1, devices=jax.devices()[:4])
+    want = jshard.shard_class(jsc, jm, k_topics=8)
+    runs = tshard.shard_class(tsc, make_mesh(4, 1, device="cpu"),
+                              k_topics=8)
+    assert len(runs) == 4
+    for name in tshard.LANE_ARRAYS:
+        shards = sorted(want[name].addressable_shards,
+                        key=lambda sh: sh.index[0].start or 0)
+        assert len(shards) == 4
+        for q, (sh, (_, run)) in enumerate(zip(shards, runs)):
+            ref = np.asarray(sh.data)
+            if name == "keys":
+                assert run[name].shape[0] == ref.shape[0] == 1
+                continue
+            np.testing.assert_array_equal(run[name], ref,
+                                          err_msg=f"{name} position {q}")
+    dead = runs[3][1]
+    assert not dead["mask"].any() and (dead["z0"] == 8).all()
+    assert not dead["keys"].any() and not dead["fb_weights"].any()
 
 
 def test_fleet_class_from_numpy_converts_the_reference_class():
@@ -527,6 +574,48 @@ def test_fleet_arm_bit_identical_to_sequential(control_fleet, tmp_path):
         assert tenant_lineage(seq, t) == tenant_lineage(control_fleet, t)
 
 
+def _indexed_cpu_mesh(monkeypatch):
+    """Lay run_fleet's (dp, 1) mesh on indexed CPU devices cpu:0..dp-1,
+    so each position is a device of its own (its own K1 call)."""
+    real = tfleet.mesh_mod.make_mesh
+
+    def make(dp=None, mp=1, devices=None, device="cuda"):
+        return real(dp, mp, devices=[f"cpu:{q}" for q in range(dp * mp)])
+    monkeypatch.setattr(tfleet.mesh_mod, "make_mesh", make)
+
+
+@pytest.mark.parametrize("dp,laying", [(2, "cpu"), (4, "cpu"),
+                                       (4, "indexed")])
+def test_fleet_over_dp_is_bit_identical_to_dp1(control_fleet, tmp_path,
+                                               monkeypatch, dp, laying):
+    """Lanes are independent: a fleet over dp positions, padded with
+    dead lanes, gives the dp = 1 fleet's ledger bodies, lineage and
+    nudge digests. On `cpu` positions every lane shares one device (one
+    K1 call a block); laid on cpu:0..3, each device makes its own call
+    for its lanes, and the calls equal sweeps x blocks x devices."""
+    calls = []
+    real = tf.gibbs_block_step_
+
+    def counted(n_dk, *a, **k):
+        calls.append(n_dk.shape[0])
+        return real(n_dk, *a, **k)
+    monkeypatch.setattr(tf, "gibbs_block_step_", counted)
+    if laying == "indexed":
+        _indexed_cpu_mesh(monkeypatch)
+    m = run_fleet(N_DAYS, N_TENANTS, tmp_path, dp=dp, **FLEET)
+    assert _identity(m) == _identity(control_fleet)
+    for t in (tenant_name(u) for u in range(N_TENANTS)):
+        assert tenant_lineage(m, t) == tenant_lineage(control_fleet, t)
+    devices = dp if laying == "indexed" else 1
+    assert {d["devices"] for d in m["dispatches"]} == {devices}
+    assert len(calls) == sum(d["sweeps"] * d["blocks"] * d["devices"]
+                             for d in m["dispatches"]) > 0
+    assert m["supervisor"]["dp"] == dp
+    # Every call carries whole positions: dp / devices of them.
+    assert set(calls) <= {(dp // devices) * -(-d["lanes"] // dp)
+                          for d in m["dispatches"]}
+
+
 def test_k1_calls_follow_the_manifest_dispatches(tmp_path, monkeypatch):
     """Each class refit steps each block with one K1 call for all its
     lanes (fleet arm) or one a lane (sequential arm): the calls equal
@@ -544,7 +633,7 @@ def test_k1_calls_follow_the_manifest_dispatches(tmp_path, monkeypatch):
         m = run_fleet(2, 3, tmp_path / str(batched), batched=batched,
                       **FLEET)
         want = sum(d["sweeps"] * d["blocks"]
-                   * (1 if d["batched"] else d["lanes"])
+                   * (d["devices"] if d["batched"] else d["lanes"])
                    for d in m["dispatches"])
         assert len(calls) == want > 0
         assert all(d["batched"] == batched for d in m["dispatches"])
@@ -690,5 +779,8 @@ def test_entry_points_default_to_the_card(tmp_path, monkeypatch):
     for make in (tf.make_fleet_refit, tf.make_tenant_refit):
         with pytest.raises(RuntimeError, match="cuda"):
             make(LDAConfig(n_topics=4), n_docs=8, n_vocab=8)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        run_fleet(1, 1, tmp_path, n_events=300, dp=2, device="cpu")
+    # A dp 2 fleet (which raised until slice 5b) needs no card on "cpu".
+    m = run_fleet(1, 1, tmp_path, n_events=300, n_sweeps=2, n_topics=4,
+                  dp=2, device="cpu")
+    assert m["supervisor"]["dp"] == 2
+    assert m["aggregate"]["ok_tenant_days"] == 1

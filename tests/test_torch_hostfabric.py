@@ -250,6 +250,51 @@ def test_kernel_error_in_a_worker_raises_and_is_no_death(corpus, tmp_path):
     assert coord.deaths == [] and coord.restarts == 0
 
 
+def test_a_worker_slower_to_start_than_its_lease_is_no_death(corpus,
+                                                             tmp_path):
+    # Worker 1 sleeps past the lease before its first beat (as a worker
+    # that imports torch on a loaded host may): it is still starting,
+    # not dead, so the fit ends in one generation, bit-identical.
+    plant = tmp_path / "plant"
+    plant.mkdir()
+    (plant / "sitecustomize.py").write_text(
+        f"import time\ntime.sleep({FABRIC_KW['lease_s'] + 2.0})\n")
+    env = {"PYTHONPATH": os.pathsep.join(
+        [str(plant), os.environ.get("PYTHONPATH", "")])}
+    out = hostfabric.run_fit(corpus, CFG, tmp_path / "fabric",
+                             worker_env={1: env}, **FABRIC_KW)
+    m = out["manifest"]
+    assert m["deaths"] == [] and m["restarts"] == 0
+    assert m["generations"] == 1
+    assert_bit_identical(in_process(corpus, CFG), out)
+
+
+def test_a_worker_that_exits_before_its_first_beat_is_dead(corpus,
+                                                           tmp_path,
+                                                           monkeypatch):
+    # Killed by a signal before it ever beats: dead at once (a start-up
+    # grace past the coordinator's timeout would end the run in a
+    # FabricError), and restarted within the budget.
+    monkeypatch.setattr(hostfabric, "START_GRACE_S", 600.0)
+    plant = tmp_path / "plant"
+    plant.mkdir()
+    marker = tmp_path / "killed_once"
+    (plant / "sitecustomize.py").write_text(
+        "import os, pathlib, signal\n"
+        f"m = pathlib.Path({str(marker)!r})\n"
+        "if not m.exists():\n"
+        "    m.write_text('x')\n"
+        "    os.kill(os.getpid(), signal.SIGKILL)\n")
+    env = {"PYTHONPATH": os.pathsep.join(
+        [str(plant), os.environ.get("PYTHONPATH", "")])}
+    out = hostfabric.run_fit(corpus, CFG, tmp_path / "fabric",
+                             worker_env={1: env}, **FABRIC_KW)
+    m = out["manifest"]
+    assert [d["host"] for d in m["deaths"]] == [1]
+    assert m["restarts"] == 1 and m["generations"] == 2
+    assert_bit_identical(in_process(corpus, CFG), out)
+
+
 def test_unreachable_coordinator_raises():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))

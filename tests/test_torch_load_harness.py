@@ -13,7 +13,9 @@ against the JAX package's.
   `max_queue_depth=1`, every served answer equals the unloaded one, no
   request is lost, and shed probes change nothing. Its p50/p99 are
   reported, not bounded (the reference's bound is ROADMAP F1).
-- A bank over several devices raises for slice 5.
+- A bank over several visible devices runs (its sharded form against
+  the reference: tests/test_torch_bank_sharded.py); more devices than
+  are visible raise the reference's ValueError.
 """
 
 import dataclasses
@@ -157,10 +159,23 @@ def test_replicas_and_the_host_tier_keep_parity():
 
 
 def test_several_devices_raise_for_slice_5():
-    spec = _spec(devices=2)
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    """Two devices raised until slice 5b ported the placements: the
+    harness now runs over two of the conftest's 8 CPU devices, single
+    and sharded, with parity; only more devices than are visible raise,
+    as the reference's harness does."""
+    for form in ("auto", "sharded"):
+        spec = _spec(devices=2, shard_form=form)
+        svc = lh.build_service(spec, lh.make_tenants(spec), device="cpu")
+        assert svc.bank.n_devices() == 2
+        out = lh.run_harness(spec, device="cpu")
+        assert out["parity_bit_identical"]
+        waves = out["banked"]["wave_dispatches"]
+        # Process-cumulative counts (the warm pass's waves included).
+        assert set(waves) == ({"d0", "d1"} if form == "sharded" else set())
+    spec = _spec(devices=9)
+    with pytest.raises(ValueError, match="spec.devices=9 > available 8"):
         lh.build_service(spec, lh.make_tenants(spec), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(ValueError, match="spec.devices=9 > available 8"):
         lh.run_harness(spec, device="cpu")
 
 

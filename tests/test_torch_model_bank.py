@@ -320,15 +320,28 @@ def test_injected_admission_fault_is_absorbed():
                                 dict(serve_form="xla", shard_form="sharded"),
                                 dict(devices=["cpu", "cpu"])])
 def test_unported_forms_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmb.ModelBank(device="cpu", **kw)
+    """These placements raised until slice 5b ported them; each now
+    scores the mixed batch with the single bank's bits (on one device
+    "sharded" homes every tenant at 0; two devices under "auto" stay
+    single, the gate's table being empty)."""
+    rng = np.random.default_rng(6)
+    models, _, tb = _banks(rng, **kw)
+    _, treqs = _twin_requests(rng, SHAPES, [300, 120, 64, 40, 500])
+    got = tb.score_batch(treqs, tol=TOL, max_results=M)
+    for req, g in zip(treqs, got):
+        _assert_equal_topk(g, _oracle(*models[req.tenant], req))
+    want = kw.get("shard_form", "single")
+    assert tb.shard_form_resolved() == want
+    assert tb.n_devices() == len(kw.get("devices", ["cpu"]))
+    assert {k[-1] for k in tb._shards} == {0}
+    assert counters.get(f"bank.shard_form_{want}") == 1
 
 
 def test_forms_and_env_overrides(monkeypatch):
     """The configured forms are kept; the serve form resolves per wave
     through the gate, and every bank form name scores through the one
-    xla form. A typo fails at construction, as does an unported
-    shard."""
+    xla form. A typo fails at construction; ONIX_BANK_SHARD outranks
+    the configured placement."""
     monkeypatch.delenv("ONIX_SERVE_FORM", raising=False)
     monkeypatch.delenv("ONIX_BANK_FORM", raising=False)
     rng = np.random.default_rng(9)
@@ -358,8 +371,13 @@ def test_forms_and_env_overrides(monkeypatch):
     assert next(iter(b.compiled_shapes))[0] == "xla"
     monkeypatch.setenv("ONIX_SERVE_FORM", "fused")
     monkeypatch.setenv("ONIX_BANK_SHARD", "sharded")
-    with pytest.raises(NotImplementedError):
-        tmb.ModelBank(device="cpu")
+    b = tmb.ModelBank(device="cpu", devices=["cpu:0", "cpu:1"],
+                      shard_form="single")
+    b.add("a", theta, phi)
+    b.score_batch([req], tol=TOL, max_results=M)
+    assert b.shard_form_resolved() == "sharded"
+    assert b.tier_stats()["shard_form"] == "sharded"
+    assert next(iter(b.compiled_shapes))[0] == "fused"
 
 
 def test_default_device_is_the_card(monkeypatch):

@@ -1,9 +1,12 @@
 """The port's scale day (`onix_torch.pipelines.scale`) against the JAX
 package's `run_scale`, on the CPU at ~20,000 events and 4 sweeps.
 
-Both runs fit on a 1×1 mesh (the reference's `make_mesh` is pinned to
-one device: on the test host it sees eight virtual ones) and the port's
-fit replays the reference's keys (`ShardedReplayNoise`), so the two
+Most runs fit on a 1×1 mesh: both packages' `make_mesh` are pinned to
+one device, where each would take every visible one (the conftest's
+eight), so that those tests hold the one-device fast path. One test
+runs both unpinned, the reference's default dp 8 mesh (the port's shard
+arm over 8 CPU positions). The port's fit replays the reference's keys
+(`ShardedReplayNoise`), so the two
 selections see the same model up to the F2 near-ties of
 tests/test_torch_sharded.py. The selected winners and scores are
 captured where `run_scale` selects them (`select_suspicious_events`,
@@ -91,13 +94,26 @@ def _capture(monkeypatch, module):
     return seen
 
 
-def run_both(monkeypatch, n_events, **kw):
-    monkeypatch.setattr(jmesh, "make_mesh",
-                        lambda dp=None, mp=1, devices=None,
-                        _real=jmesh.make_mesh: _real(dp=1, mp=1))
+def run_both(monkeypatch, n_events, pin=True, **kw):
+    if pin:
+        # Both packages would fit over every visible device (8 here):
+        # pinned to one, these runs hold the one-device fast path.
+        monkeypatch.setattr(jmesh, "make_mesh",
+                            lambda dp=None, mp=1, devices=None,
+                            _real=jmesh.make_mesh: _real(dp=1, mp=1))
+        monkeypatch.setattr(tscale, "make_mesh",
+                            lambda dp=None, mp=1, device="cpu",
+                            _real=tscale.make_mesh:
+                            _real(dp=1, mp=1, device=device))
     monkeypatch.setattr(tsg, "TorchNoise",
                         lambda seed, device, n_chains=1:
                         ShardedReplayNoise(seed, n_chains))
+    # The shard arm (an unpinned mesh) replays the reference's lane keys,
+    # split(PRNGKey(seed), P·M·C), as tests/test_torch_shard_arm.py does.
+    monkeypatch.setattr(
+        tsg.ShardedGibbsLDA, "default_noise",
+        lambda self: ShardedReplayNoise(
+            self.config.seed, len(self.mesh.devices) * self.config.n_chains))
     j_seen, t_seen = _capture(monkeypatch, jscale), _capture(monkeypatch,
                                                              tscale)
     jm = jscale.run_scale(n_events, n_sweeps=4, **kw)
@@ -135,6 +151,24 @@ def test_run_scale_matches_reference(monkeypatch, datatype, n_chains):
     assert set(jm["walls_seconds"]) == set(tm["walls_seconds"])
     assert_manifest_keys(tm, jm)
     assert_same_selection(got, want, ULP8 if n_chains == 1 else 6 * ULP8)
+
+
+def test_default_mesh_is_every_visible_device_like_the_reference(
+        monkeypatch):
+    """Neither package pinned: both fit over the conftest's 8 devices,
+    a (8, 1) mesh, and the port's selection holds to the reference's
+    under the pinned tests' rules."""
+    jm, tm, want, got = run_both(monkeypatch, 20_000, pin=False)
+    assert tm["mesh"] == jm["mesh"] == {"dp": 8, "mp": 1}
+    assert tm["orchestration"]["mesh"] == {"dp": 8, "mp": 1}
+    assert tm["devices"] == ["cpu"] * 8 and len(jm["devices"]) == 8
+    assert tm["dp1_fast_path"] is jm["dp1_fast_path"] is False
+    for key in ("n_events", "train_events", "n_docs", "n_vocab",
+                "n_train_tokens", "planted_anomalies", "words_mode"):
+        assert tm[key] == jm[key], key
+    assert abs(tm["planted_in_bottom_k"] - jm["planted_in_bottom_k"]) <= 1
+    assert_manifest_keys(tm, jm)
+    assert_same_selection(got, want)
 
 
 @pytest.mark.parametrize("datatype", ["flow", "proxy"])

@@ -124,6 +124,43 @@ def test_score_matches_reference_and_caches(server):
     assert stats["tiers"]["hbm"]["resident"] == 1
 
 
+
+def test_serve_hands_its_bank_every_visible_device(tmp_path):
+    """As the reference's `onix serve` hands its bank every device: the
+    conftest's 8 CPU devices. "auto" stays single (no measured row);
+    `serving.bank_shard=sharded` homes the tenant by crc32 and one
+    `/score` gives the single form's answer."""
+    rng = np.random.default_rng(12)
+    th, ph = _model(rng, 120, 90)
+    d = rng.integers(0, 120, 400).astype(np.int32)
+    w = rng.integers(0, 90, 400).astype(np.int32)
+    answers = {}
+    for shard in ("auto", "sharded"):
+        counters.reset()
+        cfg = OnixConfig()
+        cfg.store.root = str(tmp_path / shard)
+        cfg.serving.bank_shard = shard
+        cfg.validate()
+        save_model(cfg.serving.models_dir, TENANT, th, ph)
+        srv, port = serve.serve_background(cfg, device="cpu")
+        try:
+            status, _, out = _post_json(port, "/score", _body(d, w))
+            assert status == 200 and out["ok"]
+            answers[shard] = out["results"][0]
+            _, raw = _get(port, "/bank/stats")
+            tiers = json.loads(raw)["tiers"]
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        assert tiers["n_devices"] == 8
+        assert tiers["shard_form"] == ("single" if shard == "auto"
+                                       else "sharded")
+        assert sum(tiers["hbm"]["per_device_resident"].values()) == 1
+    for key in ("indices", "scores"):
+        assert answers["auto"][key] == answers["sharded"][key]
+    _assert_matches_reference(answers["sharded"], th, ph, d, w)
+
+
 def test_unfilled_slots_are_null(server):
     cfg, (th, ph), srv, port = server
     d = np.array([0, 1, 2], np.int32)

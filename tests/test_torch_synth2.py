@@ -33,7 +33,12 @@ from onix_torch.parallel import sharded_gibbs as tsg  # noqa: E402
 from onix_torch.pipelines import scale as tscale  # noqa: E402
 from onix_torch.pipelines import synth2 as tsynth2  # noqa: E402
 from onix_torch.pipelines.synth import SYNTH_ARRAYS  # noqa: E402
-from tests.test_torch_scale import (_capture, assert_manifest_keys,  # noqa: E402,E501
+# `_no_counts_left_by_other_tests` (autouse): a counter another test left
+# in either package's registry would add a `resilience` block to one
+# scale manifest and not the other.
+from tests.test_torch_scale import (_capture,  # noqa: E402,F401
+                                    _no_counts_left_by_other_tests,
+                                    assert_manifest_keys,
                                     assert_same_selection)
 from tests.test_torch_sharded import ShardedReplayNoise  # noqa: E402
 
@@ -140,6 +145,12 @@ def test_run_scale_on_sessions_data_matches_reference(monkeypatch,
     monkeypatch.setattr(jmesh, "make_mesh",
                         lambda dp=None, mp=1, devices=None,
                         _real=jmesh.make_mesh: _real(dp=1, mp=1))
+    # The port's run_scale, like the reference's, takes every visible
+    # device: both pinned to one.
+    monkeypatch.setattr(tscale, "make_mesh",
+                        lambda dp=None, mp=1, device="cpu",
+                        _real=tscale.make_mesh:
+                        _real(dp=1, mp=1, device=device))
     monkeypatch.setattr(tsg, "TorchNoise",
                         lambda seed, device, n_chains=1:
                         ShardedReplayNoise(seed, n_chains))
@@ -181,6 +192,12 @@ def test_proxy_share_at_the_reference_shape_is_chain_dependent(
     monkeypatch.setattr(jmesh, "make_mesh",
                         lambda dp=None, mp=1, devices=None,
                         _real=jmesh.make_mesh: _real(dp=1, mp=1))
+    # The port's run_scale, like the reference's, takes every visible
+    # device: both pinned to one.
+    monkeypatch.setattr(tscale, "make_mesh",
+                        lambda dp=None, mp=1, device="cpu",
+                        _real=tscale.make_mesh:
+                        _real(dp=1, mp=1, device=device))
     kw = dict(n_hosts=500, n_sweeps=16, datatype="proxy",
               generator="sessions", max_results=2000)
     got = {"port": [], "reference": []}
