@@ -68,12 +68,13 @@ def resolve_form_gate(*, gate: str, choices: tuple[str, ...],
 
 
 #: The central registry of every `ONIX_*` environment variable the
-#: linted tree (onix/, bench.py, scripts/) reads: name -> (type, doc).
-#: Machine-checked by `python -m onix.analysis` (the `envs` pass): a
-#: literal ONIX_* read of an undeclared name is a finding, and so is a
+#: linted tree (onix_torch/, chip_smoke.py) reads: name -> (type, doc).
+#: Machine-checked by `python -m onix_torch.analysis` (the `envs` pass):
+#: a literal ONIX_* read of an undeclared name is a finding, and so is a
 #: declaration nothing reads — this table can neither lag nor rot. The
-#: table also renders into docs/ROBUSTNESS.md (generated section
-#: `env-registry`). Leading-underscore names are internal parent/child
+#: reference's TPU, XLA-cache and bench.py knobs have no reader here and
+#: are left out. The table renders as the generated section
+#: `env-registry` (`python -m onix_torch.analysis --write-docs`). Leading-underscore names are internal parent/child
 #: handshakes, never operator knobs. Envs are OVERRIDES for
 #: experiments and drills; durable configuration belongs in the typed
 #: config below.
@@ -84,18 +85,6 @@ ENV_REGISTRY: dict[str, tuple[str, str]] = {
     "ONIX_BANK_SHARD": (
         "choice: auto|single|sharded",
         "model-bank mesh placement override (model_bank.select_shard_form)"),
-    "ONIX_BANK_TPU": (
-        "flag: 1=keep ambient backend",
-        "exp_model_bank.py: opt into the real TPU instead of pinning CPU"),
-    "ONIX_BENCH_COMPONENTS": (
-        "csv of component names",
-        "bench.py: run only these components (debugging a single arm)"),
-    "ONIX_BENCH_TIMEOUT_S": (
-        "float seconds",
-        "bench.py child wall-clock budget before the parent kills it"),
-    "ONIX_CAMPAIGN_TPU": (
-        "flag: 1=keep ambient backend",
-        "exp_campaign.py: opt into the real TPU instead of pinning CPU"),
     # lint: exempt[envs] -- read inside the generated notebook-cell SOURCE templates (oa/notebooks.py) and exported to kernels by oa/serve.py; no AST-visible read exists
     "ONIX_CONFIG": (
         "path",
@@ -109,9 +98,6 @@ ENV_REGISTRY: dict[str, tuple[str, str]] = {
         "daily supervisor drill override: ignore yesterday's model and "
         "fit every day cold (pipelines/daily.py) — daily.force_cold is "
         "the durable knob"),
-    "ONIX_DAILY_TPU": (
-        "flag: 1=keep ambient backend",
-        "exp_daily.py: opt into the real TPU instead of pinning CPU"),
     "ONIX_DEVICE_WORDS": (
         "flag: 0=host words",
         "legacy spelling of ONIX_HOST_WORDS=1 (device_words gate)"),
@@ -121,9 +107,6 @@ ENV_REGISTRY: dict[str, tuple[str, str]] = {
     "ONIX_FAULT_PLAN": (
         "plan: stage:point@N=action,...",
         "declarative chaos plan (utils/faults.py; docs/ROBUSTNESS.md)"),
-    "ONIX_FLEET_TPU": (
-        "flag: 1=keep ambient backend",
-        "exp_fleet.py: opt into the real TPU instead of pinning CPU"),
     "ONIX_HOSTFABRIC_COORD": (
         "addr: host:port",
         "hostfabric worker: jax.distributed coordinator address (set by "
@@ -138,27 +121,15 @@ ENV_REGISTRY: dict[str, tuple[str, str]] = {
     "ONIX_HOST_WORDS": (
         "flag: 1=host builders",
         "force the host word-build cross-check arm (device_words gate)"),
-    "ONIX_JAX_CACHE": (
-        "path",
-        "persistent XLA compile-cache dir (accelerators only; obs.py)"),
     "ONIX_NWK_FORM": (
         "choice: auto|scatter|matmul|pallas",
         "n_wk count-update form override (lda_gibbs.select_nwk_form)"),
-    "ONIX_NWK_MATMUL": (
-        "legacy flag: 1=matmul, 0=scatter",
-        "pre-r8 spelling of ONIX_NWK_FORM (make_block_step only)"),
-    "ONIX_PALLAS_INTERPRET": (
-        "flag: 1=interpret, 0=compiled",
-        "Pallas kernels: force interpret/compiled mode (pallas_gibbs)"),
     "ONIX_PREFETCH_DEPTH": (
         "int >= 1",
         "streaming ingest pipeline depth override (ColumnPrefetcher)"),
     "ONIX_PREFETCH_MODE": (
         "choice: auto|thread|process",
         "streaming ingest pipeline worker mode override"),
-    "ONIX_PROBE_BUDGET_S": (
-        "float seconds",
-        "bench.py backend-probe total wall budget"),
     "ONIX_PROFILE_DIR": (
         "path",
         "collect a jax profiler trace into this dir (obs.maybe_trace)"),
@@ -180,15 +151,6 @@ ENV_REGISTRY: dict[str, tuple[str, str]] = {
     "ONIX_TX_ACCESS_TOKEN": (
         "secret",
         "ThreatExchange reputation client credential (oa/repclients.py)"),
-    "_ONIX_BENCH_CHILD": (
-        "internal flag",
-        "bench.py parent->child marker (the child skips re-spawning)"),
-    "_ONIX_BENCH_PROGRESS": (
-        "internal path",
-        "bench.py child progress file the watchdog parent tails"),
-    "_ONIX_BENCH_T0": (
-        "internal float epoch-s",
-        "bench.py parent start time, for the child's deadline math"),
     "_ONIX_TELEMETRY_SNAPSHOT": (
         "internal path",
         "run_tpu_queue per-entry handshake: the child writes a counters+histograms snapshot here at exit"),

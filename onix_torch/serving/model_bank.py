@@ -224,10 +224,15 @@ def _placed(dev: torch.device) -> torch.device:
 def _staged(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     """Host array `a` as a tensor on `dev`. To a card it goes through
     pinned memory with a non-blocking copy, so the host does not wait
-    for the work already queued on the device."""
+    for the work already queued on the device. The copy into the pinned
+    block is numpy's, on this thread: `Tensor.pin_memory` copies on the
+    intra-op pool, whose wake-up put a tail of 5-48 ms on a staging
+    that takes 0.5 ms when the host's cores are busy."""
     t = torch.from_numpy(a)
     if dev.type == "cuda":
-        return t.pin_memory().to(dev, non_blocking=True)
+        pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        np.copyto(pinned.numpy(), a)
+        return pinned.to(dev, non_blocking=True)
     return t
 
 
@@ -1208,7 +1213,7 @@ class BankService:
                 "form_fallback": counters.get("serve.form_fallback"),
                 "served": counters.get("serve.served")}
 
-    # Called only under `lock` (submit()'s scoring section).
+    # lint: holds[lock] -- every production call arrives through submit()'s `with self.lock` scoring section; the bank/cache state it touches is serialized there
     def score(self, requests: list[ScoreRequest], *, tol: float,
               max_results: int) -> list[BankResult]:
         with telemetry.TRACER.span("serve.score", requests=len(requests)):
@@ -1218,6 +1223,7 @@ class BankService:
             return self._score_locked(requests, tol=tol,
                                       max_results=max_results)
 
+    # lint: holds[lock] -- called only from score(), which submit() serializes (see above)
     def _score_locked(self, requests: list[ScoreRequest], *, tol: float,
                       max_results: int) -> list[BankResult]:
         out: list[BankResult | None] = [None] * len(requests)
@@ -1265,6 +1271,7 @@ class BankService:
 
     # Called under `lock`: the serve layer's /feedback handler wraps
     # compile + install in `with service.lock`.
+    # lint: holds[lock] -- the serve layer's /feedback handler wraps compile+install in `with service.lock` (oa/serve.py), serializing installs against scoring
     def apply_feedback_filter(self, base: str, filt) -> int:
         """The serve layer's one-call feedback install: filter + epoch
         bumps for every KNOWN tenant under `base`, plus an outright
@@ -1284,6 +1291,7 @@ class BankService:
                           counter_prefix="serve.feedback_install",
                           retry_on=faults.InjectedFault)
 
+    # lint: holds[lock] -- called only from score(), which holds it (see above)
     def _put(self, key, value) -> None:
         self._cache[key] = value
         self._cache.move_to_end(key)

@@ -86,6 +86,11 @@ OA_MODULES = ("onix_torch.oa.engine", "onix_torch.oa.components",
               "onix_torch.oa.kernel")
 ANALYST_MODULES = (*OA_MODULES, "onix_torch.oa.feedback",
                    "onix_torch.oa.serve", "onix_torch.setup_cmd")
+ANALYSIS_MODULES = ("onix_torch.analysis.__init__",
+                    "onix_torch.analysis.core",
+                    "onix_torch.analysis.passes",
+                    "onix_torch.analysis.docgen",
+                    "onix_torch.analysis.__main__", "onix_torch.utils.obs")
 
 
 def _forbidden_imports(source: str) -> list:
@@ -144,8 +149,21 @@ def test_port_package_list_is_not_empty():
                  "onix_torch/pipelines/run.py", "chip_smoke.py",
                  *(m.replace(".", "/") + ".py"
                    for m in SERVING_MODULES + LIFECYCLE_MODULES
-                   + ANALYST_MODULES + FIT_MODULES)):
+                   + ANALYST_MODULES + FIT_MODULES + ANALYSIS_MODULES)):
         assert must in names
+
+
+def test_analysis_modules_load_neither_jax_nor_onix_nor_torch():
+    # The linter and the observability module are host code: they parse
+    # and count, and load no framework at all.
+    probe = subprocess.run(
+        [sys.executable, "-c",
+         f"import sys; import {', '.join(ANALYSIS_MODULES)}; "
+         "print(sorted(m for m in sys.modules "
+         "if m.split('.')[0] in ('jax', 'onix', 'torch')))"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert probe.returncode == 0, probe.stderr[-2000:]
+    assert probe.stdout.strip() == "[]"
 
 
 def test_serving_modules_load_neither_jax_nor_onix():
