@@ -249,13 +249,20 @@ non-zero and prints no result line) and prints its own wall:
              bit-identical to the fast path. (c) `hostfabric.run_fit`
              on the small day's corpus, 2 workers x 1 position on the
              card (worker_env
-             CUDA_VISIBLE_DEVICES=0), gloo: theta, phi_wk and z
-             bit-identical to the in-process dp 2 fit, each worker's K1
-             launches from its result; the SIGKILL drill resumes
-             bit-identical. (d) the refusals one card implies, by
-             message: `score --engine sharded -s mesh.dp=2` and
-             `run_scale(fit_hosts=2)` without worker_env. (e) the
-             phase's wall and the process groups' backend.
+             CUDA_VISIBLE_DEVICES=0), gloo (NCCL refuses one card
+             twice; the placement's backend and the manifest's say
+             gloo): theta, phi_wk and z bit-identical to the in-process
+             dp 2 fit, each worker's K1 launches from its result; the
+             SIGKILL drill resumes bit-identical. (d) the refusals one
+             card implies, by message: `score --engine sharded -s
+             mesh.dp=2` and `run_scale(fit_hosts=2)` without
+             worker_env. (e) the process groups' backends: the
+             shared-card fabric's, and a one-rank NCCL group that a
+             child process started beside (b)-(d), with an int32 and a
+             float64 all-reduce through the fabric's deadline wait: it
+             shows that NCCL's start, both dtypes and the wait ran (a
+             sum over one rank is its input, so it cannot show a sum
+             right); the phase's wall.
 16. placements — the collective-free placements on the one card: (a)
              the load harness at the bench shape of phase 12 (d) through
              the sharded bank ("sharded" pinned in the spec) with 1, 2
@@ -279,14 +286,27 @@ non-zero and prints no result line) and prints its own wall:
              without the laying.
 
 `--groups` (a host of 2 or more cards) builds the kernels and runs only
-what needs several cards, in one process: the shard arm with a dp 2 x
-mp 2 mesh with its positions on cuda:0..3 (modulo the cards there are)
-against the same mesh laid on cuda:0, on phase 5's day, sync and async
-tau=1: z, theta and phi_wk bit-identical, the ll history within 1e-6
-relative; each fit's wall and K1 launches. Then the placements over the
-cards: the sharded bank with its homes on cuda:0..3 against the single
-bank, the fleet over dp 4 against dp 1, and `run_scale(10^6)` over every
-visible card against the same mesh laid on cuda:0: bit-identical, the
+what needs several cards, on phase 5's day: (iii) the shard arm with a
+dp 2 x mp 2 mesh with its positions on cuda:0..3 (modulo the cards
+there are) against the same mesh laid on cuda:0, sync and async tau=1:
+z, theta and phi_wk bit-identical, the ll history within 1e-6
+relative. Its in-process fold runs in two forms, each in a fresh
+process with NCCL_DEBUG unset: the port's peer copies through the home
+card, and an NCCL all-reduce among the cards (`nccl_fold`); each fit's
+wall as start-up, first superstep and the rest, and its K1 launches.
+(i) `hostfabric.run_fit` at the default config over NCCL, 2 workers x
+1 card clean and with the SIGKILL drill, and with 4 cards 4 workers x
+1 card and 2 workers x 2 cards, each against the in-process fit of as
+many positions on cuda:0: z, theta and phi_wk bit-identical, K1
+launches sweeps x blocks x cards a worker. (ii) `run_scale(10^6,
+fit_hosts=2)` over two cards (NCCL) against both workers on cuda:0
+(gloo): theta and phi_wk bit-identical. Then, untimed, short runs with
+NCCL_DEBUG=INFO print the transports and the communicators' "Init
+timings" lines of the NCCL fold and of the NCCL fabrics. Then the
+placements over the cards: the sharded bank with its homes on
+cuda:0..3 against the single bank, the fleet over dp 4 against dp 1,
+and `run_scale(10^6)` over every visible card, in a fresh process with
+each fold, against the same mesh laid on cuda:0: bit-identical, the
 scale day's ll history within 1e-6 relative.
 
 Every wait on a child process, an HTTP answer, a fabric generation or a
@@ -403,6 +423,14 @@ WAIT_LIMITS = {
     "drill join": 3 * (12.58 + 0.27 + 11.59),
     "analyst CLI": WAIT_FLOOR_S,                # 9.74 s
     "fabric generation": 3 * 28.03,
+    # `--groups`: a generation of the fabric on phase 5's day, a card a
+    # worker (its longest, the drill's first, in the first four-card
+    # run).
+    "card fabric generation": 3 * 33.55,
+    "NCCL probe": 3 * 10.05,                    # a child's start
+    # `--groups`: a fresh process's start and at most a scale phase's
+    # wall (phase 9).
+    "fold child": 3 * (10.05 + 37.5),
     "RSS sampler join": WAIT_FLOOR_S,           # 0.00 s
     "overlap process": 3 * 189.6,               # phase 7's three cells
 }
@@ -5700,12 +5728,20 @@ def phase_fabric(card: str, root: pathlib.Path, corpus) -> int:
     card through worker_env CUDA_VISIBLE_DEVICES=0, sync: theta, phi_wk
     and z bit-identical to the in-process make_mesh(dp=2) fit on the
     card, each worker's K1 launches (from its result) sweeps x blocks;
-    then the SIGKILL drill, resumed bit-identical. Returns the fabric
-    runs' K1 launches (final generations)."""
+    then the SIGKILL drill, resumed bit-identical. Both workers on one
+    card take gloo (NCCL refuses one card twice in a communicator): the
+    placement's backend and the manifest's say so. Returns the fabric
+    runs' K1 launches (final generations) and that backend."""
     import numpy as np
 
     from onix_torch.config import LDAConfig
     from onix_torch.parallel import hostfabric
+    from onix_torch.parallel.mesh import collective_backend
+    env = FABRIC_KW["worker_env"]
+    backend = collective_backend("cuda", [
+        env[i]["CUDA_VISIBLE_DEVICES"] for i in range(FABRIC_KW["n_hosts"])])
+    if backend != "gloo":
+        raise AssertionError(f"the shared-card placement gives {backend}")
     ref = shard_fit(card, corpus, card_mesh(2), "in-process dp 2")
     # One call a block steps both positions in process; each worker
     # steps its one position in as many calls.
@@ -5742,9 +5778,9 @@ def phase_fabric(card: str, root: pathlib.Path, corpus) -> int:
                   f"K1 launches a worker {m['k1_launches']}; theta, phi_wk "
                   f"and z {'bit-identical to' if same else 'DIFFER from'} "
                   "the in-process dp 2 fit's")
-        if not same:
+        if not same or m["backend"] != backend:
             raise AssertionError(f"{label}: differs from the in-process "
-                                 "fit")
+                                 f"fit, or ran {m['backend']}")
         if kill is None:
             if m["k1_launches"] != [want, want] or m["deaths"]:
                 raise AssertionError(f"{label}: launches "
@@ -5754,7 +5790,79 @@ def phase_fabric(card: str, root: pathlib.Path, corpus) -> int:
             raise AssertionError(f"{label}: deaths {m['deaths']}, resume "
                                  f"{m['resume_sweeps']}")
         total += sum(m["k1_launches"])
-    return total
+    return total, backend
+
+
+def nccl_probe_child(out: str) -> None:
+    """(e), in a child process: a one-rank NCCL process group on the
+    card (`mesh.multihost_init`), then one int32 and one float64
+    all-reduce through the engine's `all_reduce_` and the fabric's
+    deadline wait; writes what it saw to `out` as JSON."""
+    import socket
+
+    import torch
+
+    from onix_torch.parallel import hostfabric, mesh, sharded_gibbs
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    deadline_s = FABRIC_KW["collective_deadline_s"]
+    mesh.multihost_init(f"127.0.0.1:{port}", 1, 0, init_timeout_s=60,
+                        device="cuda", backend="nccl",
+                        collective_timeout_s=hostfabric.group_timeout_s(
+                            deadline_s))
+    init_s = time.perf_counter() - t0
+    backend = torch.distributed.get_backend()
+    hb = hostfabric.HeartbeatWriter(pathlib.Path(out + ".hb"), 0, 0.5)
+    wait = hostfabric._wait_with_deadline(deadline_s, hb, backend)
+    home = torch.device("cuda", 0)
+    # A sum over one rank is its input: this shows the start, the
+    # dtypes and the wait ran, not that anything was summed.
+    ran = {}
+    for dtype in (torch.int32, torch.float64):
+        x = torch.arange(1, 4097, device=home).to(dtype)
+        y = x.clone()
+        sharded_gibbs.all_reduce_([y], home, wait)
+        ran[str(dtype).split(".")[1]] = bool(torch.equal(x, y))
+    mesh.multihost_shutdown()
+    pathlib.Path(out).write_text(json.dumps({
+        "backend": backend, "init_s": round(init_s, 3), "ran": ran,
+        "wall_s": round(time.perf_counter() - t0, 3)}))
+
+
+def start_nccl_probe(root: pathlib.Path) -> tuple:
+    """Start (e)'s NCCL child beside (b)-(d): a process group in the
+    smoke's own process would show phase 16's collective-free checks a
+    c10d op."""
+    out = root / "nccl_probe.json"
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.nccl_probe_child(sys.argv[1])", str(out)],
+        cwd=str(HERE), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    return proc, out, time.perf_counter()
+
+
+def finish_nccl_probe(proc, out: pathlib.Path, t0: float) -> dict:
+    """Wait for (e)'s child and check it: an NCCL group, both
+    all-reduces ran and returned their input."""
+    try:
+        with bounded("NCCL probe", "the one-rank NCCL group's child") \
+                as lim:
+            log, _ = proc.communicate(
+                timeout=max(1.0, lim - (time.perf_counter() - t0)))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"NCCL probe: the child exited "
+                             f"{proc.returncode}:\n{log[-3000:]}")
+    got = json.loads(out.read_text())
+    if got["backend"] != "nccl" or not all(got["ran"].values()):
+        raise AssertionError(f"NCCL probe: {got}")
+    return got
 
 
 def phase_shard_refusals(card: str, root: pathlib.Path) -> None:
@@ -5789,19 +5897,32 @@ def phase_shards(card: str, root: pathlib.Path, table, planted,
                  phi_1x1, small) -> tuple:
     """Phase 15: (a)-(e); the fabric's fits run on the small day's
     corpus (`small`). Returns (K1's `shards` row, K1 launches)."""
-    from onix_torch.parallel import mesh
     from onix_torch.pipelines.corpus_build import build_corpus
     from onix_torch.pipelines.words import flow_words
     t0 = time.perf_counter()
     corpus = build_corpus(flow_words(table)).corpus
     row = phase_shard_step(card, corpus)
-    k1_score = phase_shard_fit(card, root, table, planted, corpus, phi_1x1)
-    k1_fabric = phase_fabric(card, root,
-                             build_corpus(flow_words(small)).corpus)
-    phase_shard_refusals(card, root)
+    probe = start_nccl_probe(root)
+    try:
+        k1_score = phase_shard_fit(card, root, table, planted, corpus,
+                                   phi_1x1)
+        k1_fabric, backend = phase_fabric(
+            card, root, build_corpus(flow_words(small)).corpus)
+        phase_shard_refusals(card, root)
+    except BaseException:
+        probe[0].kill()
+        probe[0].communicate()
+        raise
+    got = finish_nccl_probe(*probe)
     row.update(launches_mesh_day=k1_score, launches_fabric=k1_fabric)
-    say(card, f"phase 15: process groups of the fabric on backend "
-              f"{mesh.BACKEND}; wall {time.perf_counter() - t0:.1f} s")
+    say(card, f"phase 15: process groups: the shared-card fabric's on "
+              f"{backend} (its manifest, and the placement's backend); a "
+              f"one-rank {got['backend']} group in a child process: "
+              f"started in {got['init_s']:.2f} s, an int32 and a float64 "
+              f"all-reduce through the deadline wait ran ({got['ran']}: "
+              f"NCCL's start, its dtypes and the wait, not a sum), child "
+              f"{got['wall_s']:.2f} s; wall "
+              f"{time.perf_counter() - t0:.1f} s")
     return row, k1_score + k1_fabric
 
 
@@ -6266,83 +6387,387 @@ def phase_placements(card: str, root: pathlib.Path) -> tuple:
 GROUPS_LL_RTOL = 1e-6
 
 
-def phase_card_groups(card: str) -> None:
-    """`--groups`: the shard arm with its positions on several cards
-    (each card's lanes, views, draws and rings on it; only the int32
-    deltas cross to the first card) against the same mesh on one card:
-    bit-identical fits, sync and async tau=1, on phase 5's day."""
-    import numpy as np
-    import torch
+# `--groups`: the fabric over the cards, a card (or two) a worker; the
+# drill as phase 15's.
+CARD_FABRIC_KW = dict(lease_s=15.0, beat_s=0.5, collective_deadline_s=120.0,
+                      device="cuda")
+# The in-process fold's two forms, each timed in a fresh process: the
+# port's peer copies through the home card, and an NCCL all-reduce
+# among the cards (`nccl_fold`).
+FOLDS = ("peer", "nccl")
+# The untimed runs that log NCCL's INFO lines run this many sweeps.
+INFO_SWEEPS = 2
 
+
+def nccl_fold(self, bufs: list, head: int) -> None:
+    """`ShardedGibbsLDA._reduce_groups` as an NCCL all-reduce among one
+    process's cards (`torch.cuda.nccl`): the form the port's peer copies
+    are timed against (one process only)."""
+    from torch.cuda import nccl
+    nccl.all_reduce(bufs)
+
+
+def nccl_env(workdir) -> dict:
+    """An environment that logs NCCL's INFO lines under `workdir`, one
+    file a process (for the untimed runs only: the logging slows NCCL's
+    start)."""
+    return {"NCCL_DEBUG": "INFO",
+            "NCCL_DEBUG_FILE": str(pathlib.Path(workdir) / "nccl.%p.log")}
+
+
+def nccl_info(paths) -> str:
+    """The transports that NCCL's INFO lines in `paths` name ("... via
+    P2P/CUMEM"), each with its count of connections, and each
+    communicator's "Init timings" line."""
+    seen: dict = {}
+    inits = []
+    for path in sorted(map(pathlib.Path, paths)):
+        text = path.read_text(errors="replace") if path.exists() else ""
+        for m in re.finditer(r" via (\S+)", text):
+            seen[m.group(1)] = seen.get(m.group(1), 0) + 1
+        inits += [m.group(1).strip()
+                  for m in re.finditer(r"Init timings(.*)", text)]
+    via = ", ".join(f"{k} x{v}" for k, v in sorted(seen.items()))
+    return (f"transports {via or 'none logged'}; init timings "
+            f"{' | '.join(inits) or 'none logged'}")
+
+
+def sync_cards() -> None:
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def timed_supersteps(model) -> list:
+    """Note the wall of each superstep of `model`'s fit, every card
+    synchronised at its end, in the returned list."""
+    walls: list = []
+    real = model.superstep
+
+    def superstep(*args, **kw):
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        sync_cards()
+        walls.append(time.perf_counter() - t0)
+        return out
+    model.superstep = superstep
+    return walls
+
+
+def split_wall(fit: dict) -> str:
+    """A fit's wall as start-up (layout and initial state), its first
+    superstep and the rest."""
+    w, steps = fit["walls"], fit["steps"]
+    return (f"fit {fit['wall']:.3f} s = layout and init "
+            f"{w['layout'] + w['init']:.3f} + first superstep "
+            f"{steps[0]:.3f} + {len(steps) - 1} more {sum(steps[1:]):.3f} "
+            f"+ estimates {w['estimates']:.3f}")
+
+
+def same_fit(what: str, a: dict, b: dict) -> float:
+    """Hold fit `a` to `b`: z, theta and phi_wk bit for bit, the ll
+    history within GROUPS_LL_RTOL (an f32 sum over each device group's
+    [L_g, B] stack, which CUDA splits by the stack's shape) at every
+    sweep of `a`'s, which ends where `b`'s does (a resumed fabric's
+    history starts at its resume). Returns the ll's largest relative
+    difference."""
+    import numpy as np
+    for name in ("z", "theta", "phi_wk"):
+        if not np.array_equal(np.asarray(a[name]), np.asarray(b[name])):
+            raise AssertionError(f"{what}: {name} differs")
+    ref = dict(b["ll_history"])
+    sweeps = [s for s, _ in a["ll_history"]]
+    if not sweeps or sweeps[-1] != b["ll_history"][-1][0] \
+            or not set(sweeps) <= set(ref):
+        raise AssertionError(f"{what}: ll history at sweeps {sweeps}")
+    rel = max(abs(v - ref[s]) / abs(ref[s]) for s, v in a["ll_history"])
+    if rel > GROUPS_LL_RTOL:
+        raise AssertionError(f"{what}: ll history differs (max relative "
+                             f"{rel:.3e})")
+    return rel
+
+
+def mesh_fit(corpus, devices, form: str, **fit_kw) -> dict:
+    """phase 5's day on dp 2 x mp 2 over `devices`, sync or async
+    tau=1: its arrays on the host, ll history, walls (each superstep's
+    too) and K1 launches."""
     from onix_torch.config import LDAConfig
     from onix_torch.models import sample_count
     from onix_torch.parallel.mesh import make_mesh
     from onix_torch.parallel.sharded_gibbs import ShardedGibbsLDA
-    from onix_torch.pipelines.corpus_build import build_corpus
-    from onix_torch.pipelines.synth import synth_flow_day
-    from onix_torch.pipelines.words import flow_words
+    kw = {"merge_form": "async", "merge_staleness": 1} \
+        if form == "async" else {}
+    model = ShardedGibbsLDA(LDAConfig(**kw), corpus.n_vocab,
+                            mesh=make_mesh(2, 2, devices=devices))
+    steps = timed_supersteps(model)
+    sync_cards()
+    before = sample_count.launches
+    t0 = time.perf_counter()
+    fit = model.fit(corpus, **fit_kw)
+    sync_cards()
+    return {"wall": time.perf_counter() - t0, "steps": steps,
+            "walls": fit["walls"], "k1": sample_count.launches - before,
+            "groups": len(model._groups), "z": fit["state"].z.cpu().numpy(),
+            "theta": fit["theta"], "phi_wk": fit["phi_wk"],
+            "ll_history": fit["ll_history"]}
+
+
+def fold_child(work: str, fold: str, what: str) -> None:
+    """`--groups`, in a fresh process, so that its first fit pays its
+    own start: the in-process fold as the port runs it ("peer") or as
+    `nccl_fold` ("nccl"). `what` "mesh": phase 5's day (`work`/
+    corpus.pkl) on dp 2 x mp 2 over cuda:0..3, sync then async tau=1;
+    "scale": `run_scale(10^6)` over every card; "info": a short sync
+    mesh fit, for NCCL's INFO lines. Writes what it measured to
+    `work`/{fold}-{what}.pkl."""
+    import pickle
+
+    import torch
+
+    from onix_torch.parallel.sharded_gibbs import ShardedGibbsLDA
+    from onix_torch.pipelines.scale import run_scale
+    if fold == "nccl":
+        ShardedGibbsLDA._reduce_groups = nccl_fold
+    work = pathlib.Path(work)
     n = torch.cuda.device_count()
-    if n < 2:
-        raise AssertionError(f"--groups needs 2 or more cards, have {n}")
-    table, _ = synth_flow_day(DAY_EVENTS, n_hosts=DAY_HOSTS,
-                              n_anomalies=DAY_ANOMALIES, seed=0)
-    corpus = build_corpus(flow_words(table)).corpus
-    spread = [f"cuda:{q % n}" for q in range(4)]
-
-    def sync_all():
-        for i in range(n):
-            torch.cuda.synchronize(i)
-    for kw in ({}, {"merge_form": "async", "merge_staleness": 1}):
-        form = "async tau=1" if kw else "sync"
-        fits = {}
-        for name, devices in ((f"{min(n, 4)} cards", spread),
-                              ("one card", ["cuda:0"] * 4)):
-            model = ShardedGibbsLDA(LDAConfig(**kw), corpus.n_vocab,
-                                    mesh=make_mesh(2, 2, devices=devices))
-            sync_all()
-            before = sample_count.launches
+    devices = [f"cuda:{q % n}" for q in range(4)]
+    out = {}
+    if what == "scale":
+        with FitStates(ShardedGibbsLDA) as seen:
             t0 = time.perf_counter()
-            fits[name] = model.fit(corpus)
-            sync_all()
+            m = run_scale(DAY_EVENTS, device="cuda")
+            sync_cards()
+        (fit, _), = seen.seen
+        out = {"run": time.perf_counter() - t0, "mesh": m["mesh"],
+               "devices": m["devices"],
+               "fit_s": m["walls_seconds"]["gibbs_fit"],
+               "walls": fit["walls"],
+               "planted": (m["planted_in_bottom_k"],
+                           m["planted_anomalies"]),
+               "z": fit["state"].z.cpu().numpy(), "theta": fit["theta"],
+               "phi_wk": fit["phi_wk"], "ll_history": fit["ll_history"]}
+    else:
+        corpus = pickle.loads((work / "corpus.pkl").read_bytes())
+        for form in (("sync",) if what == "info" else ("sync", "async")):
+            out[form] = mesh_fit(corpus, devices, form,
+                                 **({"n_sweeps": INFO_SWEEPS}
+                                    if what == "info" else {}))
+    (work / f"{fold}-{what}.pkl").write_bytes(pickle.dumps(out))
+
+
+def run_fold_child(work: pathlib.Path, fold: str, what: str,
+                   env: dict | None = None) -> dict:
+    """Run `fold_child` in a fresh process (NCCL_DEBUG unset unless
+    `env` sets it) and return what it wrote."""
+    import pickle
+    child_env = {k: v for k, v in os.environ.items()
+                 if not k.startswith("NCCL_DEBUG")}
+    child_env.update(env or {})
+    with bounded("fold child", f"the {fold} fold's {what} child") as lim:
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.fold_child(*sys.argv[1:])", str(work), fold, what],
+            cwd=str(HERE), env=child_env, capture_output=True, text=True,
+            timeout=lim)
+    if proc.returncode != 0:
+        raise AssertionError(f"groups: the {fold} fold's {what} child "
+                             f"exited {proc.returncode}:\n"
+                             f"{(proc.stdout + proc.stderr)[-3000:]}")
+    return pickle.loads((work / f"{fold}-{what}.pkl").read_bytes())
+
+
+def phase_card_groups(card: str, corpus, work: pathlib.Path) -> None:
+    """`--groups` (iii): the shard arm with its positions on several
+    cards (each card's lanes, views, draws and rings on it) against the
+    same mesh on one card: bit-identical fits, sync and async tau=1, on
+    phase 5's day. The in-process fold runs in both forms, each in a
+    fresh process with NCCL_DEBUG unset: the port's peer copies and an
+    NCCL all-reduce among the cards; each fit's wall split into
+    start-up, its first superstep and the rest. Then, untimed, a short
+    fit of the NCCL form with NCCL's INFO lines: its transports and
+    its communicators' init timings."""
+    import pickle
+
+    import torch
+    (work / "corpus.pkl").write_bytes(pickle.dumps(corpus))
+    n = min(4, torch.cuda.device_count())
+    got = {fold: run_fold_child(work, fold, "mesh") for fold in FOLDS}
+    for form in ("sync", "async"):
+        tau = " tau=1" if form == "async" else ""
+        one = mesh_fit(corpus, ["cuda:0"] * 4, form)
+        say(card, f"groups: {form}{tau} dp 2 x mp 2 on one card "
+                  f"({one['groups']} group): {split_wall(one)}; K1 "
+                  f"{one['k1']}, final ll {one['ll_history'][-1][1]:.6f}")
+        for fold in FOLDS:
+            fit = got[fold][form]
+            rel = same_fit(f"groups {form}{tau}, {fold} fold: {n} cards "
+                           "against one", fit, one)
+            say(card, f"groups: {form}{tau} dp 2 x mp 2 on {n} cards "
+                      f"({fit['groups']} groups), {fold} fold, a fresh "
+                      f"process: {split_wall(fit)}; K1 {fit['k1']}; z, "
+                      f"theta, phi_wk bit-identical to one card, ll "
+                      f"within {rel:.3e} relative (bar {GROUPS_LL_RTOL})")
+    info = work / "info"
+    info.mkdir()
+    run_fold_child(work, "nccl", "info", nccl_env(info))
+    say(card, f"groups: untimed, the nccl fold over {n} cards with NCCL's "
+              f"INFO lines: {nccl_info(info.glob('nccl.*.log'))}")
+
+
+class FabricEnv:
+    """While active, `hostfabric.run_fit` (which `run_scale` calls for
+    `fit_hosts` > 1) gives its workers `env(workdir)` besides their own
+    environment and a `timeout_s`, and keeps each run's result in
+    `runs`."""
+
+    def __init__(self, env, timeout_s: float):
+        self.env, self.timeout_s, self.runs = env, timeout_s, []
+
+    def __enter__(self):
+        from onix_torch.parallel import hostfabric
+        self.mod, self.real = hostfabric, hostfabric.run_fit
+
+        def run_fit(corpus, cfg, workdir, **kw):
+            extra = self.env(workdir)
+            kw["worker_env"] = {i: {**extra.get(i, {}),
+                                    **kw.get("worker_env", {}).get(i, {})}
+                                for i in range(kw.get("n_hosts", 2))}
+            kw.setdefault("timeout_s", self.timeout_s)
+            out = self.real(corpus, cfg, workdir, **kw)
+            self.runs.append((pathlib.Path(workdir), out))
+            return out
+        hostfabric.run_fit = run_fit
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.run_fit = self.real
+        return False
+
+
+def phase_group_fabric(card: str, corpus, work: pathlib.Path) -> None:
+    """`--groups` (i) and (ii): the host fabric over the cards, over
+    NCCL. (i) `hostfabric.run_fit` on phase 5's day at the default
+    config, 2 workers x 1 card (cuda:0, cuda:1), clean and with the
+    SIGKILL drill, and (with 4 cards) 4 workers x 1 card and 2 workers
+    x 2 cards (each worker folds its two cards first, then the group
+    all-reduces): z, theta and phi_wk bit-identical to the in-process
+    fit of as many positions on one card, each worker's K1 launches
+    sweeps x blocks x its cards. (ii) `run_scale(10^6, fit_hosts=2)`
+    over two cards against the same call with both workers on cuda:0
+    (gloo): theta and phi_wk bit-identical. Each timed run prints its
+    backend and walls with NCCL_DEBUG unset; then short untimed runs of
+    the NCCL fabrics print NCCL's transports and init timings."""
+    import numpy as np
+    import torch
+
+    from onix_torch.config import LDAConfig
+    from onix_torch.parallel import hostfabric
+    from onix_torch.pipelines.scale import run_scale
+    n = torch.cuda.device_count()
+    lim = WAIT_LIMITS["card fabric generation"]
+    shapes = ((2, 1), (4, 1), (2, 2)) if n >= 4 else ((2, 1),)
+
+    def fabric(wd, workers, cards, env=None, **kw):
+        with FabricEnv(env or (lambda w: {}), lim):
+            return hostfabric.run_fit(corpus, LDAConfig(), wd,
+                                      n_hosts=workers, local_devices=cards,
+                                      **CARD_FABRIC_KW, **kw)
+    refs = {}
+    for workers, cards in shapes:
+        positions = workers * cards
+        if positions not in refs:
+            refs[positions] = shard_fit(
+                card, corpus, card_mesh(positions),
+                f"in-process dp {positions} on cuda:0")
+            refs[positions]["z"] = refs[positions]["state"].z.cpu().numpy()
+        ref = refs[positions]
+        runs = (("clean", None), ("drill", FABRIC_KILL)) \
+            if (workers, cards) == (2, 1) else (("clean", None),)
+        for label, kill in runs:
+            t0 = time.perf_counter()
+            out = fabric(work / f"fabric{workers}x{cards}-{label}", workers,
+                         cards, kill_plan=kill)
             wall = time.perf_counter() - t0
-            say(card, f"groups: {form} dp 2 x mp 2 on {name} "
-                      f"({len(model._groups)} group(s)): fit {wall:.3f} s, "
-                      f"K1 {sample_count.launches - before}, final ll "
-                      f"{fits[name]['ll_history'][-1][1]:.6f}")
-        a, b = fits.values()
-        for what, x, y in (("z", a["state"].z.cpu(), b["state"].z.cpu()),
-                           ("theta", a["theta"], b["theta"]),
-                           ("phi_wk", a["phi_wk"], b["phi_wk"])):
-            if not np.array_equal(np.asarray(x), np.asarray(y)):
-                raise AssertionError(f"groups {form}: {what} on several "
-                                     "cards differs from one card")
-        # The ll is an f32 sum over each group's [L_g, B] stack, whose
-        # reduction CUDA splits by the stack's shape: it is held to
-        # GROUPS_LL_RTOL, not bit for bit.
-        sweeps = [[s for s, _ in f["ll_history"]] for f in (a, b)]
-        ll_a, ll_b = (np.array([v for _, v in f["ll_history"]])
-                      for f in (a, b))
-        rel = float(np.max(np.abs(ll_a - ll_b) / np.abs(ll_b)))
-        if sweeps[0] != sweeps[1] or rel > GROUPS_LL_RTOL:
-            raise AssertionError(f"groups {form}: ll history differs "
-                                 f"(max relative {rel:.3e})")
-        say(card, f"groups: {form}: several cards bit-identical to one "
-                  f"(z, theta, phi_wk); ll history within {rel:.3e} "
-                  f"relative (bar {GROUPS_LL_RTOL})")
+            m = out["manifest"]
+            tag = (f"groups: fabric {workers} workers x {cards} card(s) "
+                   f"{label}")
+            rel = same_fit(f"{tag} against in-process dp {positions}",
+                           {**out, "z": out["arrays"]["z"]}, ref)
+            if m["backend"] != "nccl":
+                raise AssertionError(f"{tag}: ran {m['backend']}")
+            # One K1 call a block for each card of a worker.
+            want = [ref["k1"] * cards] * workers
+            if kill is None and (m["deaths"] or m["k1_launches"] != want):
+                raise AssertionError(f"{tag}: deaths {m['deaths']}, "
+                                     f"launches {m['k1_launches']}")
+            if kill is not None and (len(m["deaths"]) != 1
+                                     or m["restarts"] != 1
+                                     or m["resume_sweeps"][1] < 0):
+                raise AssertionError(f"{tag}: deaths {m['deaths']}, resume "
+                                     f"{m['resume_sweeps']}")
+            say(card, f"{tag}: {m['backend']} process group; wall "
+                      f"{wall:.2f} s, generations "
+                      f"{m['walls']['generations_s']}; deaths "
+                      f"{[d['host'] for d in m['deaths']]}, resume sweeps "
+                      f"{m['resume_sweeps']}; K1 launches a worker "
+                      f"{m['k1_launches']}; z, theta, phi_wk bit-identical "
+                      f"to the in-process fit, ll within {rel:.3e} "
+                      f"relative")
+    del refs
+
+    scale = {}
+    for label, cards in (("two cards", None), ("cuda:0 shared", "0")):
+        def env(w, cards=cards):
+            return {i: ({} if cards is None else
+                        {"CUDA_VISIBLE_DEVICES": cards}) for i in range(2)}
+        t0 = time.perf_counter()
+        with FabricEnv(env, lim) as fab:
+            m = run_scale(DAY_EVENTS, fit_hosts=2, device="cuda")
+        (wd, out), = fab.runs
+        fm = m["orchestration"]["fit_fabric"]
+        scale[label] = out
+        say(card, f"groups: run_scale({DAY_EVENTS}, fit_hosts=2) on "
+                  f"{label}: {fm['backend']} process group; fit "
+                  f"{m['walls_seconds']['gibbs_fit']} s, generations "
+                  f"{fm['walls']['generations_s']}, K1 a worker "
+                  f"{fm['k1_launches']}; run "
+                  f"{time.perf_counter() - t0:.2f} s; planted "
+                  f"{m['planted_in_bottom_k']} of {m['planted_anomalies']}")
+        want = "nccl" if cards is None else "gloo"
+        if fm["backend"] != want:
+            raise AssertionError(f"groups: run_scale on {label} ran "
+                                 f"{fm['backend']}, not {want}")
+    a, b = scale.values()
+    for name in ("theta", "phi_wk"):
+        if not np.array_equal(a[name], b[name]):
+            raise AssertionError(f"groups: run_scale {name} over two cards "
+                                 "differs from the shared card's")
+    say(card, "groups: run_scale(fit_hosts=2) over two cards (NCCL) "
+              "bit-identical to both workers on cuda:0 (gloo): theta, "
+              "phi_wk")
+
+    for workers, cards in shapes[::2]:
+        wd = work / f"fabric{workers}x{cards}-info"
+        m = fabric(wd, workers, cards,
+                   lambda w: {i: nccl_env(w) for i in range(workers)},
+                   n_sweeps=INFO_SWEEPS)["manifest"]
+        say(card, f"groups: untimed, fabric {workers} workers x {cards} "
+                  f"card(s), {INFO_SWEEPS} sweeps with NCCL's INFO lines: "
+                  f"{m['backend']}, {nccl_info(wd.glob('nccl.*.log'))}")
 
 
-def phase_group_placements(card: str) -> None:
+def phase_group_placements(card: str, work: pathlib.Path) -> None:
     """`--groups`, slice 5b: the placements over the cards themselves,
     each against one card. The sharded bank at the harness's bench shape
     with its homes on cuda:0..3 against the single bank; the fleet at
     PLACEMENT_FLEET over dp 4 (or as many cards as there are) against
-    dp 1; `run_scale(10^6)` over every visible card against the same
-    mesh laid on cuda:0 (`OneCardDevices`): winners, fleet artifacts,
-    z, theta and phi_wk bit-identical, the scale day's ll history
-    within GROUPS_LL_RTOL."""
+    dp 1; `run_scale(10^6)` over every visible card, in a fresh process
+    with each in-process fold (`fold_child`), against the same mesh
+    laid on cuda:0 (`OneCardDevices`): winners, fleet artifacts, z,
+    theta and phi_wk bit-identical, the scale day's ll history within
+    GROUPS_LL_RTOL."""
     import dataclasses
 
-    import numpy as np
     import torch
 
     from onix_torch.parallel.sharded_gibbs import ShardedGibbsLDA
@@ -6378,7 +6803,7 @@ def phase_group_placements(card: str) -> None:
     wk = PLACEMENT_FLEET
     fkw = {k: wk[k] for k in ("n_events", "n_sweeps", "n_topics",
                               "max_results", "seed")}
-    tmp = pathlib.Path(tempfile.mkdtemp(prefix="onix_groups_"))
+    tmp = work
     fleets = {}
     for dp in (1, n):
         t0 = time.perf_counter()
@@ -6395,39 +6820,34 @@ def phase_group_placements(card: str) -> None:
         raise AssertionError(f"groups: the dp {n} fleet over {n} cards "
                              "differs from dp 1")
 
-    fits = {}
-    for label, lay in (("cards", None), ("one card", n)):
-        with FitStates(ShardedGibbsLDA) as seen:
-            if lay is None:
-                m = run_scale(DAY_EVENTS, device="cuda")
-            else:
-                with OneCardDevices(lay):
-                    m = run_scale(DAY_EVENTS, device="cuda")
-        sync_all()
-        (fit, _), = seen.seen
-        fits[label] = fit
-        say(card, f"groups: run_scale({DAY_EVENTS}) on {label}: mesh "
-                  f"{m['mesh']}, devices {m['devices']}, fit "
-                  f"{m['walls_seconds']['gibbs_fit']} s, planted "
-                  f"{m['planted_in_bottom_k']} of {m['planted_anomalies']}")
-        if m["mesh"] != {"dp": n, "mp": 1}:
-            raise AssertionError(f"groups: run_scale mesh {m['mesh']}")
-    a, b = fits["cards"], fits["one card"]
-    for what, x, y in (("z", a["state"].z.cpu(), b["state"].z.cpu()),
-                       ("theta", a["theta"], b["theta"]),
-                       ("phi_wk", a["phi_wk"], b["phi_wk"])):
-        if not np.array_equal(np.asarray(x), np.asarray(y)):
-            raise AssertionError(f"groups: run_scale {what} over the cards "
-                                 "differs from one card")
-    ll_a, ll_b = (np.array([v for _, v in f["ll_history"]]) for f in (a, b))
-    rel = float(np.max(np.abs(ll_a - ll_b) / np.abs(ll_b)))
-    if rel > GROUPS_LL_RTOL:
-        raise AssertionError(f"groups: run_scale ll history differs "
-                             f"(max relative {rel:.3e})")
+    with FitStates(ShardedGibbsLDA) as seen, OneCardDevices(n):
+        m = run_scale(DAY_EVENTS, device="cuda")
+    sync_all()
+    (fit, _), = seen.seen
+    one = {"z": fit["state"].z.cpu().numpy(), "theta": fit["theta"],
+           "phi_wk": fit["phi_wk"], "ll_history": fit["ll_history"]}
+    say(card, f"groups: run_scale({DAY_EVENTS}) on one card: mesh "
+              f"{m['mesh']}, fit {m['walls_seconds']['gibbs_fit']} s, "
+              f"planted {m['planted_in_bottom_k']} of "
+              f"{m['planted_anomalies']}")
+    for fold in FOLDS:
+        got = run_fold_child(work, fold, "scale")
+        if got["mesh"] != {"dp": n, "mp": 1}:
+            raise AssertionError(f"groups: run_scale mesh {got['mesh']}")
+        rel = same_fit(f"groups: run_scale over the cards, {fold} fold, "
+                       "against one card", got, one)
+        w = got["walls"]
+        say(card, f"groups: run_scale({DAY_EVENTS}) on the cards, {fold} "
+                  f"fold, a fresh process: mesh {got['mesh']}, devices "
+                  f"{got['devices']}, fit {got['fit_s']} s (layout "
+                  f"{w['layout']:.3f}, init {w['init']:.3f}, sweeps "
+                  f"{w['sweeps']:.3f}, estimates {w['estimates']:.3f}), run "
+                  f"{got['run']:.2f} s, planted {got['planted'][0]} of "
+                  f"{got['planted'][1]}; z, theta, phi_wk bit-identical "
+                  f"to one card, ll within {rel:.3e} relative")
     say(card, f"groups: placements bit-identical to one card (harness "
-              f"bank, fleet dp {n}, run_scale z, theta, phi_wk); scale "
-              f"ll history within {rel:.3e} relative (bar "
-              f"{GROUPS_LL_RTOL})")
+              f"bank, fleet dp {n}, run_scale z, theta, phi_wk under both "
+              f"folds; scale ll bar {GROUPS_LL_RTOL})")
 
 
 def main() -> int:
@@ -6453,11 +6873,24 @@ def main() -> int:
     say(card, f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
               f"{torch.cuda.device_count()} device(s)")
     t0 = time.perf_counter()
+    if args:
+        n = torch.cuda.device_count()
+        if n < 2:
+            raise AssertionError(f"--groups needs 2 or more cards, have {n}")
     with phase(card, 1):
         phase_build(card)
     if args:
-        phase_card_groups(card)
-        phase_group_placements(card)
+        from onix_torch.pipelines.corpus_build import build_corpus
+        from onix_torch.pipelines.synth import synth_flow_day
+        from onix_torch.pipelines.words import flow_words
+        table, _ = synth_flow_day(DAY_EVENTS, n_hosts=DAY_HOSTS,
+                                  n_anomalies=DAY_ANOMALIES, seed=0)
+        corpus = build_corpus(flow_words(table)).corpus
+        with tempfile.TemporaryDirectory(prefix="onix_groups_") as tmp:
+            work = pathlib.Path(tmp)
+            phase_card_groups(card, corpus, work)
+            phase_group_fabric(card, corpus, work)
+            phase_group_placements(card, work)
         say(card, f"--groups passed in {time.perf_counter() - t0:.1f} s")
         print(card)
         print(json.dumps({"ok": True, "device": {

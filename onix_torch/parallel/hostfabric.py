@@ -5,7 +5,7 @@ N worker PROCESSES (local subprocesses by default, real hosts by
 exporting ONIX_HOSTFABRIC_COORD and launching
 `python -m onix_torch.parallel.hostfabric --workdir W --host-id I` per
 host) each own `local_devices` positions of one global (dp, mp=1) mesh
-joined by a gloo process group (`mesh.multihost_init`) and run the
+joined by a process group (`mesh.multihost_init`) and run the
 UNCHANGED ShardedGibbsLDA shard arm over it, so the τ-ring merge
 semantics (sync fold bit-identical, async τ≥1 inside the 5% ll band)
 carry from one process to several with no new math.
@@ -42,10 +42,14 @@ domain"):
   checkpoint.save discipline into `ckpt/<fp>/host-<i>/`; resume is
   coordinator-decided (checkpoint.latest_common_sweep) so every shard
   restarts at the SAME superstep boundary.
-- Collective calls get a bounded deadline + one retry before a worker
-  declares a peer dead (`host.collective_deadline`, `host.peer_dead`);
-  fault sites `host:death`, `host:merge`, `host:ckpt` ride
-  ONIX_FAULT_PLAN pre-mutation like every prior site.
+- Collective calls get a bounded deadline before a worker declares a
+  peer dead (`host.collective_deadline`, `host.peer_dead`), and under
+  gloo one retry; a failed NCCL collective is never retried (its
+  communicator cannot be reused), and a dead peer under NCCL wedges the
+  survivors, whom the lease then kills. Fault sites `host:death`,
+  `host:merge` (retried under both backends: it fires before any
+  collective), `host:ckpt` ride ONIX_FAULT_PLAN pre-mutation like every
+  prior site.
 - A worker that exits non-zero for any other reason (a failed kernel
   build, a launch error) raises FabricError with its log tail; only a
   lease expiry counts as a death.
@@ -56,7 +60,12 @@ Where the workers run: the caller's `device` ("cuda" | "cpu"). On
 `worker_env` names CUDA_VISIBLE_DEVICES for it (two workers can share
 one card so); without enough cards and without that, the coordinator
 raises before it spawns anything. On "cpu" each worker has
-`local_devices` CPU positions (`mesh.host_device_count`).
+`local_devices` CPU positions (`mesh.host_device_count`). The process
+group's backend follows from that placement
+(`mesh.collective_backend`): NCCL when every worker has cards of its
+own, gloo on the CPU or when workers share a card. The coordinator
+writes it into the spec; each worker reports the backend its group
+used, and the manifest's `backend` is theirs.
 
 The engine is imported lazily: a spawned worker must let the
 coordinator's env (CUDA_VISIBLE_DEVICES, XLA_FLAGS device count) reach
@@ -110,9 +119,10 @@ class HostPeerDead(FabricError):
 
 
 class CollectiveFailed(RuntimeError):
-    """Raised inside a WORKER when one all-reduce failed (gloo reports a
-    peer's closed connection so): the bounded retry's trigger, as an
-    injected host:merge fault is. No other error is retried."""
+    """Raised inside a WORKER when one gloo all-reduce failed (gloo
+    reports a peer's closed connection so): the bounded retry's
+    trigger, as an injected host:merge fault is. No other error is
+    retried."""
 
 
 # ---------------------------------------------------------------------------
@@ -314,12 +324,30 @@ def _state_from_shard(engine, saved, noise):
     return engine.state_from_arrays(saved.arrays)
 
 
-def _wait_with_deadline(seconds: float, hb: HeartbeatWriter):
+#: Seconds between two looks at an NCCL all-reduce's completion.
+NCCL_POLL_S = 1e-4
+
+
+def group_timeout_s(deadline_s: float) -> float:
+    """The process group's own collective timeout for a fabric whose
+    collective deadline is `deadline_s`: long enough that torch's
+    watchdog never ends a collective before the fabric's deadline and
+    lease do."""
+    return 2.0 * deadline_s + 60.0
+
+
+def _wait_with_deadline(seconds: float, hb: HeartbeatWriter,
+                        backend: str):
     """The engine's `collective_wait`: wait on one all-reduce with a
     hard wall. A collective whose peer died may never complete, so past
     the deadline the worker exits abruptly (rc 82) and lets the
     coordinator's lease detection own recovery — there is no safe way
-    to unwind a wedged collective in-process."""
+    to unwind a wedged collective in-process. Gloo's `work.wait()`
+    blocks until the sum is done; NCCL's only orders the current
+    stream, so under NCCL the wait first polls the work until it has
+    completed. A failed gloo all-reduce raises CollectiveFailed, which
+    the worker retries once; a failed NCCL one raises HostPeerDead: its
+    communicator cannot run another collective."""
     def wait(work) -> None:
         done = threading.Event()
 
@@ -331,8 +359,15 @@ def _wait_with_deadline(seconds: float, hb: HeartbeatWriter):
 
         threading.Thread(target=_reap, daemon=True).start()
         try:
+            if backend == "nccl":
+                while not work.is_completed():
+                    time.sleep(NCCL_POLL_S)
             work.wait()
         except RuntimeError as e:
+            if backend == "nccl":
+                counters.inc("host.peer_dead")
+                hb.set_status("peer-dead")
+                raise HostPeerDead(f"an NCCL all-reduce failed: {e}") from e
             raise CollectiveFailed(str(e)) from e
         finally:
             done.set()
@@ -356,12 +391,16 @@ def run_worker(workdir: str | pathlib.Path, host_id: int) -> int:
                          spec["beat_s"])
     hb.start()
     try:
-        return _worker_body(workdir, int(host_id), spec, hb)
+        rc = _worker_body(workdir, int(host_id), spec, hb)
+        if rc == 0:
+            from onix_torch.parallel.mesh import multihost_shutdown
+            multihost_shutdown()
+        return rc
     except HostPeerDead as e:
-        # gloo reports a dead peer at once, where a wedged collective
-        # would block: keep beating for the collective deadline, so
-        # that the coordinator sees the dead host's lease expire first
-        # (and kills this one), then exit.
+        # A collective that failed reports a dead peer at once, where a
+        # wedged collective would block: keep beating for the
+        # collective deadline, so that the coordinator sees the dead
+        # host's lease expire first (and kills this one), then exit.
         print(f"hostfabric host {host_id}: {e}", file=sys.stderr)
         time.sleep(float(spec.get("collective_deadline_s", 120.0)))
         return 83
@@ -390,9 +429,14 @@ def _worker_body(workdir: pathlib.Path, host_id: int, spec: dict,
         return 2
     hb.set_status("init")
     from onix_torch.parallel import mesh as mesh_mod
+    deadline_s = float(spec.get("collective_deadline_s", 120.0))
     mesh_mod.multihost_init(coord, spec["n_hosts"], host_id,
                             init_timeout_s=int(spec.get("init_timeout_s",
-                                                        120)))
+                                                        120)),
+                            device=spec["device"], backend=spec["backend"],
+                            collective_timeout_s=group_timeout_s(deadline_s))
+    import torch
+    backend = torch.distributed.get_backend()
 
     from onix_torch import checkpoint as ckpt
     from onix_torch.config import LDAConfig
@@ -423,8 +467,7 @@ def _worker_body(workdir: pathlib.Path, host_id: int, spec: dict,
     # The shard arm at every mesh, 1×1 included, as the reference's
     # workers run `_superstep_shardmap`.
     engine.dp1_fast = False
-    deadline_s = float(spec.get("collective_deadline_s", 120.0))
-    engine.collective_wait = _wait_with_deadline(deadline_s, hb)
+    engine.collective_wait = _wait_with_deadline(deadline_s, hb, backend)
     sc = engine.prepare(corpus)
     hb.set_status("compile")
     blocks = engine.device_corpus(sc)
@@ -519,16 +562,18 @@ def _worker_body(workdir: pathlib.Path, host_id: int, spec: dict,
 
     hb.set_status("result")
     _write_result(workdir, host_id, spec, engine, state, sc, ll_history,
-                  sample_count.launches - launches0)
+                  sample_count.launches - launches0, backend)
     store.commit(digest)
     hb.set_status("done")
     return 0
 
 
 def _write_result(workdir: pathlib.Path, host_id: int, spec: dict,
-                  engine, state, sc, ll_history, k1_launches: int) -> None:
+                  engine, state, sc, ll_history, k1_launches: int,
+                  backend: str) -> None:
     """Atomic per-host result shard: every host ships its local doc
-    rows (and their topics z) and its K1 launches; host 0 additionally
+    rows (and their topics z), its K1 launches and its process group's
+    backend; host 0 additionally
     ships the replicated word tables, the doc map, and the ll series
     (identical on every host)."""
     res = _result_path(workdir, host_id)
@@ -541,6 +586,7 @@ def _write_result(workdir: pathlib.Path, host_id: int, spec: dict,
                "n_hosts": np.int64(spec["n_hosts"]),
                "host": np.int64(host_id),
                "k1_launches": np.int64(k1_launches),
+               "backend": np.str_(backend),
                # This worker's host.* counter snapshot (merge retries,
                # shard saves, ...) — counters live per process, so the
                # coordinator can only surface them in the manifest if
@@ -676,6 +722,7 @@ class FabricCoordinator:
         self._resume_sweeps: list[int] = []
         self._worker_counters: dict[str, int] = {}
         self._launches: list[int] = []
+        self._backend_used: str | None = None
 
     # -- identity ---------------------------------------------------------
 
@@ -763,7 +810,8 @@ class FabricCoordinator:
             "topology": _topology(self.n_hosts, self.local_devices,
                                   self._fingerprint()),
             "device": self.platform,
-            "backend": "gloo",
+            # The backend the final generation's process group ran.
+            "backend": self._backend_used,
             "merge_form": self.cfg.merge_form,
             "merge_staleness": (self.cfg.merge_staleness
                                 if self.cfg.merge_form == "async" else 0),
@@ -812,7 +860,32 @@ class FabricCoordinator:
             "init_timeout_s": self.init_timeout_s,
             "generation": self._generation,
             "device": self.platform,
+            "backend": self._backend(),
         })
+
+    def _placements(self) -> list[str] | None:
+        """Each worker's cards as CUDA_VISIBLE_DEVICES names them: its
+        `worker_env` entry, else cards [i·L, (i+1)·L) of this host. None
+        on the CPU, and for workers that this coordinator does not
+        spawn (operator-launched hosts hold cards of their own)."""
+        if self.platform != "cuda" or not self.spawn:
+            return None
+        cards = None
+        out = []
+        for i in range(self.n_hosts):
+            env = self.worker_env.get(i, {})
+            if "CUDA_VISIBLE_DEVICES" not in env:
+                cards = _visible_cards() if cards is None else cards
+                env = {"CUDA_VISIBLE_DEVICES": ",".join(
+                    cards[i * self.local_devices:
+                          (i + 1) * self.local_devices])}
+            out.append(env["CUDA_VISIBLE_DEVICES"])
+        return out
+
+    def _backend(self) -> str:
+        """The workers' process-group backend, from where they run."""
+        from onix_torch.parallel.mesh import collective_backend
+        return collective_backend(self.platform, self._placements())
 
     def _check_devices(self) -> None:
         """Refuse, before anything is spawned, a cuda fabric whose
@@ -838,15 +911,12 @@ class FabricCoordinator:
         root = pathlib.Path(onix_torch.__file__).resolve().parents[1]
         (self.workdir / "log").mkdir(exist_ok=True)
         procs = {}
-        cards = _visible_cards()
+        placements = self._placements()
         self._spawn_ts = time.time()
         for i in range(self.n_hosts):
             env = dict(os.environ)
-            if self.platform == "cuda":
-                # Worker i owns cards [i·L, (i+1)·L) of this host.
-                env["CUDA_VISIBLE_DEVICES"] = ",".join(
-                    cards[i * self.local_devices:
-                          (i + 1) * self.local_devices])
+            if placements is not None:
+                env["CUDA_VISIBLE_DEVICES"] = placements[i]
             else:
                 env["XLA_FLAGS"] = _xla_flags_with_device_count(
                     env.get("XLA_FLAGS"), self.local_devices)
@@ -1022,6 +1092,11 @@ class FabricCoordinator:
                     f"{int(part['n_hosts'])}-host fleet, expected "
                     f"{self.n_hosts}")
         self._launches = [int(p["k1_launches"]) for p in parts]
+        backends = {str(p["backend"]) for p in parts}
+        if len(backends) != 1:
+            raise FabricError(f"the workers' process groups ran on "
+                              f"different backends: {sorted(backends)}")
+        self._backend_used = backends.pop()
         parts.sort(key=lambda p: int(p["row0"]))
         n_dk = np.concatenate([p["n_dk"] for p in parts], axis=0)
         acc_ndk = np.concatenate([p["acc_ndk"] for p in parts], axis=0)

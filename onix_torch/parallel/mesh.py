@@ -10,10 +10,15 @@ then runs the positions of one device as lanes of one kernel call.
 `chip_smoke.py` lays a dp × mp mesh onto one card this way.
 
 Several processes form one mesh through `torch.distributed`
-(`multihost_init`). Every process group is gloo: a cross-process sum
-stages its int32 delta on the host. The global positions are laid out
-process-major, as the reference's `jax.devices()` orders them, and each
-process holds the positions of its own devices.
+(`multihost_init`). The global positions are laid out process-major, as
+the reference's `jax.devices()` orders them, and each process holds the
+positions of its own devices. The group's backend follows from where
+its ranks run (`collective_backend`), never from a setting: ranks on
+cards of their own all-reduce over NCCL, on the card, as the
+reference's TPU collectives stay on the device; ranks on the CPU, or
+ranks that share a card (NCCL refuses one card twice in a
+communicator), all-reduce over gloo, staged on the host, as the
+reference's `enable_cpu_collectives` routes its CPU collectives.
 """
 
 from __future__ import annotations
@@ -36,8 +41,7 @@ DCN_AXIS = "dcn"        # across-slice axis (data-center network)
 # over both.
 DATA_AXES = (DCN_AXIS, DP_AXIS)
 
-#: The backend of every process group the port starts.
-BACKEND = "gloo"
+BACKENDS = ("gloo", "nccl")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,21 +186,48 @@ def data_axes_of(mesh: Mesh) -> tuple[str, ...]:
     return tuple(a for a in DATA_AXES if a in mesh.shape)
 
 
+def collective_backend(device_type: str, placements=None) -> str:
+    """The process-group backend of ranks on `device_type` ("cuda" or
+    "cpu"): gloo on the CPU; on cards NCCL, unless two ranks share a
+    card, which gloo then serves. `placements` holds each rank's cards
+    as CUDA_VISIBLE_DEVICES names them, one comma-separated string a
+    rank; None means that every rank holds cards of its own, as
+    operator-launched hosts do."""
+    if device_type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be cuda or cpu, got {device_type!r}")
+    if device_type == "cpu":
+        return "gloo"
+    if placements is None:
+        return "nccl"
+    cards = [c for p in placements for c in p.split(",")]
+    return "nccl" if len(cards) == len(set(cards)) else "gloo"
+
+
 def multihost_init(coordinator: str | None = None,
                    num_processes: int | None = None,
                    process_id: int | None = None,
-                   init_timeout_s: int | None = None) -> bool:
+                   init_timeout_s: int | None = None, *,
+                   device="cpu", backend: str | None = None,
+                   collective_timeout_s: float | None = None) -> bool:
     """Join the process group of a multi-process fit. Returns True when
     this process is one of several after the call.
 
-    An explicit `coordinator` ("host:port" of process 0) starts a gloo
-    process group over `tcp://<coordinator>` with `num_processes` and
+    An explicit `coordinator` ("host:port" of process 0) starts a
+    process group over a TCP store there with `num_processes` and
     `process_id`; a bad explicit configuration raises, and so does a
-    coordinator that never answers (after `init_timeout_s`). With no
-    arguments and no cluster environment, running alone is what was
-    asked for: it warns and returns False. With no arguments while the
-    launcher's environment says several processes, it raises: a rank
-    that went on alone would fit 1/N of the data."""
+    coordinator that never answers (after `init_timeout_s`). `backend`
+    defaults to `collective_backend` of `device`'s type. Under NCCL the
+    rank's home card (`device`, card 0 when it names no index) becomes
+    the current card and the communicator is built at init; NCCL on a
+    CPU device raises, and a failed NCCL start raises: nothing falls
+    back to gloo. `collective_timeout_s` is the group's own timeout for
+    a collective (torch's watchdog under NCCL), `init_timeout_s` by
+    default.
+
+    With no arguments and no cluster environment, running alone is
+    what was asked for: it warns and returns False. With no arguments
+    while the launcher's environment says several processes, it raises:
+    a rank that went on alone would fit 1/N of the data."""
     dist = torch.distributed
     if dist.is_initialized():
         return dist.get_world_size() > 1
@@ -207,10 +238,28 @@ def multihost_init(coordinator: str | None = None,
         if not 0 <= process_id < num_processes:
             raise ValueError(f"process_id {process_id} outside "
                              f"[0, {num_processes})")
+        dev = torch.device(device)
+        backend = backend or collective_backend(dev.type)
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got "
+                             f"{backend!r}")
+        card = {}
+        if backend == "nccl":
+            if dev.type != "cuda":
+                raise ValueError(f"an NCCL group needs the rank's card; "
+                                 f"device {device!r} is not one")
+            card_dev = torch.device("cuda", dev.index or 0)
+            torch.cuda.set_device(card_dev)
+            card = {"device_id": card_dev}
+        host, port = coordinator.rsplit(":", 1)
+        init_s = init_timeout_s or 300
+        store = dist.TCPStore(host, int(port), num_processes,
+                              is_master=process_id == 0,
+                              timeout=datetime.timedelta(seconds=init_s))
         dist.init_process_group(
-            BACKEND, init_method=f"tcp://{coordinator}",
-            world_size=num_processes, rank=process_id,
-            timeout=datetime.timedelta(seconds=init_timeout_s or 300))
+            backend, store=store, world_size=num_processes, rank=process_id,
+            timeout=datetime.timedelta(
+                seconds=collective_timeout_s or init_s), **card)
         return dist.get_world_size() > 1
     if num_processes not in (None, 1) or process_id not in (None, 0):
         raise ValueError("num_processes / process_id need a coordinator")
@@ -222,6 +271,12 @@ def multihost_init(coordinator: str | None = None,
     print("multihost_init: no multi-host environment detected; running "
           "single-process", file=sys.stderr)
     return False
+
+
+def multihost_shutdown() -> None:
+    """Leave the process group, if this process joined one."""
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
 
 
 def _cluster_env_says_multiprocess() -> bool:

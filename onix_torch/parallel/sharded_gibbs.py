@@ -28,9 +28,14 @@ arithmetic:
   of the group, as the reference's per-device sweep builds them.
 - **The fold** (`merge_form="sync"`): after each group, exact int32
   sums over the lanes — n_wk deltas over the data axes, n_dk deltas
-  over mp, n_k deltas over both — the reference's psums. Across
-  processes each rank first sums its own lanes, then a gloo
-  all-reduce adds the ranks (`mesh.multihost_init`).
+  over mp, n_k deltas over both — the reference's psums. Each device
+  sums its own lanes; the devices of one process then add their sums
+  on the home device (a peer copy in and out between cards, which
+  measured faster than an NCCL all-reduce among them: PERF.md §6);
+  across processes the home device's sums all-reduce over the process
+  group (`mesh.multihost_init`): on the home card under NCCL, staged on
+  the host under gloo. Every sum is of integers, so exact in any
+  order.
 - **The τ-ring** (`merge_form="async"`): `ring_push` and `_ring_sum`
   as the reference's, one ring a lane: a peer's delta folds exactly τ
   windows late, and the superstep's end flushes every pending delta,
@@ -304,7 +309,8 @@ class ShardedGibbsLDA:
 
     In a process group (`mesh.multihost_init`) the mesh spans the
     processes; each holds whole rows of mp, and its folds and ll sums
-    all-reduce over gloo. `collective_wait(work)` waits on each
+    all-reduce over the group: on the home card under NCCL, through
+    the host under gloo. `collective_wait(work)` waits on each
     all-reduce (default `work.wait()`); the host fabric sets it to a
     wait with a deadline."""
 
@@ -323,6 +329,12 @@ class ShardedGibbsLDA:
         self.n_mp = int(self.mesh.shape.get(MP_AXIS, 1))
         self.device = self.mesh.device
         self.world = self.mesh.n_processes
+        # Where a cross-process sum runs: on the home card under NCCL,
+        # on the host under gloo (and for one process, which has none).
+        self.backend = (torch.distributed.get_backend() if self.world > 1
+                        else None)
+        self._coll_device = (self.device if self.backend == "nccl"
+                             else torch.device("cpu"))
         # The reference's dp=1 fast path; ONIX_DP1_FAST=0 pins the shard
         # arm, which is bit-identical to it at 1×1.
         self.dp1_fast = (self.n_data == 1 and self.n_mp == 1
@@ -377,6 +389,13 @@ class ShardedGibbsLDA:
                                 for c in range(c_size)], device=self.device))
             for dev, js in device_groups(self.position_devices)]
         self._one_group = len(self._groups) == 1
+        # Each group's lanes' rows in the fold's sums, on its device:
+        # n_dk (p, c), n_wk (m, c) and n_k c.
+        self._lane_rows = [
+            tuple(r.to(dev) for r in (self._p[ls] * c_size + self._c[ls],
+                                      self._m[ls] * c_size + self._c[ls],
+                                      self._c[ls]))
+            for dev, ls in self._groups]
 
     def _group_views(self, state: ShardedState) -> list:
         """Each group's lanes' copies of their counts, on its device:
@@ -385,20 +404,6 @@ class ShardedGibbsLDA:
                                      state.n_wk[self._m[ls], self._c[ls]],
                                      state.n_k[self._c[ls]])]
                 for dev, ls in self._groups]
-
-    def _gather(self, parts: list) -> list:
-        """Each group's lanes of the three count tables -> [L, ...] on
-        the home device (the one group's own tensors, which lie there)."""
-        if self._one_group:
-            return list(parts[0])
-        out = []
-        for t, first in enumerate(parts[0]):
-            full = torch.empty((self._c.shape[0], *first.shape[1:]),
-                               dtype=first.dtype, device=self.device)
-            for (dev, ls), g in zip(self._groups, parts):
-                full[ls] = g[t].to(self.device)
-            out.append(full)
-        return out
 
     def _noise_parts(self, u) -> list:
         """A draw as one tensor a group: `PositionNoise` draws so; a
@@ -419,17 +424,9 @@ class ShardedGibbsLDA:
                 t[ls] = part.to(t.device)
 
     def _allreduce_(self, *tensors) -> None:
-        """Sum `tensors` (one dtype) over the processes, in place: one
-        gloo all-reduce of their concatenation, staged on the host."""
-        if self.world == 1:
-            return
-        flat = torch.cat([t.reshape(-1).cpu() for t in tensors])
-        work = torch.distributed.all_reduce(flat, async_op=True)
-        (self.collective_wait or (lambda w: w.wait()))(work)
-        i = 0
-        for t in tensors:
-            t.copy_(flat[i:i + t.numel()].view(t.shape))
-            i += t.numel()
+        """Sum `tensors` (one dtype) over the processes, in place."""
+        if self.world > 1:
+            all_reduce_(tensors, self._coll_device, self.collective_wait)
 
     # -- state construction ----------------------------------------------
 
@@ -668,46 +665,60 @@ class ShardedGibbsLDA:
                                       eta=cfg.eta, v_eta=v_eta,
                                       use_gumbel=self.use_gumbel)
 
-    def _lane_sums(self, own: list) -> tuple:
-        """The reference's psums of the lanes' deltas `own` (n_dk, n_wk,
-        n_k): n_dk over mp [P_l, C, Dl, K], n_wk over the data axes [M,
-        C, Vc, K] and n_k over both [C, K], exact int32, the last two
-        all-reduced over the processes."""
+    def _fold(self, own: list) -> list:
+        """The reference's psums of each group's lane deltas `own`
+        ([n_dk, n_wk, n_k] lanes, on its device): n_dk over mp [P_l·C,
+        Dl, K], n_wk over the data axes [M·C, Vc, K] and n_k over both
+        [C, K], exact int32, the last two over the processes too. Every
+        group gets the three totals on its device."""
         p_l = self.rows[1] - self.rows[0]
         m, c = self.n_mp, self.config.n_chains
-        d_dk = own[0].view(p_l, m, c, *own[0].shape[1:]).sum(
-            1, dtype=torch.int32)
-        d_wk = own[1].view(p_l, m, c, *own[1].shape[1:]).sum(
-            0, dtype=torch.int32)
-        d_k = own[2].view(p_l * m, c, -1).sum(0, dtype=torch.int32)
-        self._allreduce_(d_wk, d_k)
-        return d_dk, d_wk, d_k
+        dk, wk, k = (t.shape[1:] for t in own[0])
+        # One buffer a group, the cross-process part (n_wk, n_k) first.
+        shapes = ((m * c, *wk), (c, *k), (p_l * c, *dk))
+        sizes = [int(np.prod(sh)) for sh in shapes]
+        bufs, sums = [], []
+        for (ndk, nwk, nk), rows in zip(own, self._lane_rows):
+            buf = torch.zeros(sum(sizes), dtype=torch.int32,
+                              device=ndk.device)
+            d_wk, d_k, d_dk = (t.view(sh) for t, sh in
+                               zip(buf.split(sizes), shapes))
+            for total, lanes, row in zip((d_dk, d_wk, d_k),
+                                         (ndk, nwk, nk), rows):
+                total.index_add_(0, row, lanes)
+            bufs.append(buf)
+            sums.append([d_dk, d_wk, d_k])
+        self._reduce_groups(bufs, sizes[0] + sizes[1])
+        return sums
 
-    def _exact(self, parts: list, rings: list) -> list:
-        """Exact global counts in the state's layout from each group's
-        views and their pending deltas (view + pending, the same on
-        every lane of a row), on the home device: n_dk from mp lane 0,
-        n_wk from local row 0, n_k from lane 0 of each chain."""
-        p_l = self.rows[1] - self.rows[0]
-        m, c = self.n_mp, self.config.n_chains
-        ndk, nwk, nk = self._gather([[v + _ring_sum(r)
-                                      for v, r in zip(g, gr)]
-                                     for g, gr in zip(parts, rings)])
-        return [ndk.view(p_l, m, c, *ndk.shape[1:])[:, 0],
-                nwk.view(p_l, m, c, *nwk.shape[1:])[0],
-                nk.view(p_l * m, c, -1)[0]]
+    def _reduce_groups(self, bufs: list, head: int) -> None:
+        """Sum the groups' fold buffers in place, every group's becoming
+        the total, with their first `head` elements summed over the
+        processes too: the buffers of the other devices add into the
+        home device's (a peer copy between cards), its head all-reduces
+        over the process group, and the total copies back out."""
+        home, rest = bufs[0], bufs[1:]
+        for b in rest:
+            home += b.to(home.device)
+        self._allreduce_(home[:head])
+        for b in rest:
+            b.copy_(home)
 
     def superstep(self, state: ShardedState, blocks: list, noise,
                   start: int, n_steps: int, with_initial_ll: bool = False):
         """`n_steps` sweeps of the shard arm from sweep `start`, in
         place; sweep s accumulates iff s >= burn_in. Each sweep is
-        `sync_splits` windows of nb / sync_splits blocks, each followed
-        by the fold (sync) or by the τ-ring exchange (async, whose views
-        carry across the superstep and flush at its end). A device
-        group's views, z, noise and rings stay on its device; only the
-        int32 deltas come to the home device for the fold, and the
-        folded sums go back. Returns (state, ll) or, `with_initial_ll`,
-        (state, ll0, ll), the ll from the counts before and after."""
+        `sync_splits` windows of nb / sync_splits blocks. After each
+        window the lanes' deltas fold (`_fold`) and the state on the
+        home device takes their totals, so that it holds the exact
+        global counts throughout; each lane's view takes its peers'
+        part of the totals at once (sync) or through its τ-ring (async,
+        whose views carry across the superstep). A device group's
+        views, z, noise and rings stay on its device for the whole
+        superstep: only the views' first copy crosses devices, and the
+        totals come to each device from the fold. Returns (state, ll)
+        or, `with_initial_ll`, (state, ll0, ll), the ll from the counts
+        before and after."""
         cfg = self.config
         ll0 = (self.log_likelihood(state, blocks) if with_initial_ll
                else None)
@@ -716,55 +727,36 @@ class ShardedGibbsLDA:
         lanes = state.z.view(-1, *state.z.shape[3:])
         zs = self._split(lanes)
         tau, m = self.merge_tau, self.n_mp
-        asyn = self.merge_form == "async"
-        if asyn:
-            parts = self._group_views(state)
-            rings = [[torch.zeros((tau, *v.shape), dtype=v.dtype,
-                                  device=v.device)
-                      if tau and (i or m > 1) else None
-                      for i, v in enumerate(g)] for g in parts]
+        parts = self._group_views(state)
+        # No ring folds at once (sync, and async τ = 0); n_dk has no
+        # peers without an mp axis.
+        rings = [[torch.zeros((tau, *v.shape), dtype=v.dtype,
+                              device=v.device)
+                  if tau and (i or m > 1) else None
+                  for i, v in enumerate(g)] for g in parts]
         for i in range(n_steps):
             for j0 in range(0, nb, win):
-                if not asyn:
-                    parts = self._group_views(state)
-                    old = [[v.clone() for v in g] for g in parts]
-                    self._window(parts, zs, blocks, noise, j0, j0 + win)
-                    d_dk, d_wk, d_k = self._lane_sums(self._gather(
-                        [[v.sub_(o) for v, o in zip(g, go)]
-                         for g, go in zip(parts, old)]))
-                    state.n_dk += d_dk
-                    state.n_wk += d_wk
-                    state.n_k += d_k
-                    continue
                 old = [[v.clone() for v in g] for g in parts]
                 self._window(parts, zs, blocks, noise, j0, j0 + win)
                 own = [[v - o for v, o in zip(g, go)]
                        for g, go in zip(parts, old)]
-                s_dk, s_wk, s_k = self._lane_sums(self._gather(own))
+                sums = self._fold(own)
+                for t, total in zip((state.n_dk, state.n_wk, state.n_k),
+                                    sums[0]):
+                    t += total.view(t.shape)
                 # Peers' deltas = the collective total minus our own;
                 # own deltas stay in the view immediately (the AD-LDA
                 # discipline — a shard is never stale w.r.t. itself).
-                for (dev, ls), g, go, gr in zip(self._groups, parts, own,
-                                                 rings):
-                    p, mm, c = self._p[ls], self._m[ls], self._c[ls]
-                    peers = [s_dk[p, c].to(dev) - go[0] if m > 1 else None,
-                             s_wk[mm, c].to(dev) - go[1],
-                             s_k[c].to(dev) - go[2]]
-                    for t, peer in enumerate(peers):
-                        if peer is not None:
-                            fold, gr[t] = ring_push(gr[t], peer)
-                            g[t] += fold
+                for g, go, gr, rows, totals in zip(parts, own, rings,
+                                                   self._lane_rows, sums):
+                    for t in range(0 if m > 1 else 1, 3):
+                        fold, gr[t] = ring_push(gr[t],
+                                                totals[t][rows[t]] - go[t])
+                        g[t] += fold
             if start + i >= cfg.burn_in:
-                ndk, nwk, _ = (self._exact(parts, rings) if asyn
-                               else (state.n_dk, state.n_wk, None))
-                state.acc_ndk += ndk
-                state.acc_nwk += nwk
+                state.acc_ndk += state.n_dk
+                state.acc_nwk += state.n_wk
                 state.n_acc += 1
-        if asyn:
-            # The boundary FLUSH: every still-pending peer delta folds,
-            # restoring exact global counts.
-            state.n_dk, state.n_wk, state.n_k = (
-                t.contiguous() for t in self._exact(parts, rings))
         self._join(lanes, zs)
         ll = self.log_likelihood(state, blocks)
         return (state, ll0, ll) if with_initial_ll else (state, ll)
@@ -801,27 +793,28 @@ class ShardedGibbsLDA:
                 lp = torch.log(torch.clamp_min(p, 1e-30)) * m[:, j]
                 sm = sm + lp.sum(dim=-1)
                 t = t + m[:, j].sum(dim=-1)
-            sums.append(torch.stack([sm, t], dim=-1).cpu())
+            sums.append(torch.stack([sm, t], dim=-1))
         local = torch.zeros((len(self.positions) * c_size, 2),
-                            dtype=torch.float64)
+                            dtype=torch.float64, device=self._coll_device)
         for (dev, ls), s in zip(self._groups, sums):
-            local[ls.cpu()] = s.to(torch.float64)
+            local[ls.to(local.device)] = s.to(local.device, torch.float64)
         every = torch.zeros((self.n_data * self.n_mp, c_size, 2),
-                            dtype=torch.float64)
+                            dtype=torch.float64, device=self._coll_device)
         every[self.positions[0]:self.positions[-1] + 1] = \
             local.view(-1, c_size, 2)
         self._allreduce_(every)
-        sm, t = every.sum(dim=0).unbind(-1)
+        sm, t = every.cpu().sum(dim=0).unbind(-1)
         return float((sm / torch.clamp_min(t, 1.0)).mean())
 
     def _global_rows(self, t: torch.Tensor, n_rows: int) -> np.ndarray:
         """All processes' rows of a row-sharded tensor, on the host: this
         process's in place, the others' added by an all-reduce of
         zeros elsewhere (exact: x + 0 is x)."""
-        out = torch.zeros((n_rows, *t.shape[1:]), dtype=t.dtype)
-        out[self.rows[0]:self.rows[1]] = t.cpu()
+        out = torch.zeros((n_rows, *t.shape[1:]), dtype=t.dtype,
+                          device=self._coll_device)
+        out[self.rows[0]:self.rows[1]] = t.to(out.device)
         self._allreduce_(out)
-        return out.numpy()
+        return out.cpu().numpy()
 
     # -- fit --------------------------------------------------------------
 
@@ -963,6 +956,20 @@ class ShardedGibbsLDA:
         return assemble_estimates(self.config, self.n_vocab, n_docs,
                                   sc.doc_map, int(state.n_acc), ndk_h,
                                   nwk_c)
+
+
+def all_reduce_(tensors, device, wait=None) -> None:
+    """Sum `tensors` (one dtype) over the process group, in place: one
+    all-reduce of their concatenation on `device` (the home card under
+    NCCL, the host under gloo), waited on by `wait(work)` (default
+    `work.wait()`)."""
+    flat = torch.cat([t.reshape(-1).to(device) for t in tensors])
+    work = torch.distributed.all_reduce(flat, async_op=True)
+    (wait or (lambda w: w.wait()))(work)
+    i = 0
+    for t in tensors:
+        t.copy_(flat[i:i + t.numel()].view(t.shape))
+        i += t.numel()
 
 
 def assemble_estimates(cfg, n_vocab: int, n_docs: int, doc_map,

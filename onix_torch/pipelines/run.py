@@ -75,7 +75,9 @@ def fit_engine(cfg: OnixConfig, bundle: CorpusBundle, engine: str,
     corpus: "gibbs" (`GibbsLDA`) or "sharded" (`ShardedGibbsLDA` on the
     (mesh.dp, mesh.mp) mesh of `device`'s type, after
     `multihost_init` joins the processes that `mesh.coordinator`,
-    `mesh.num_processes` and `mesh.process_id` name), each with any
+    `mesh.num_processes` and `mesh.process_id` name: operator-launched
+    hosts, each on cards of its own, so NCCL on "cuda" and gloo on
+    "cpu"), each with any
     `lda.n_chains` (θ [C, D, K] and φ_wk [C, V, K] for C > 1); or "svi"
     (`fit_svi`, one chain)."""
     if engine not in ("gibbs", "sharded") and cfg.lda.n_chains > 1:
@@ -101,7 +103,8 @@ def fit_engine(cfg: OnixConfig, bundle: CorpusBundle, engine: str,
             coordinator=cfg.mesh.coordinator or None,
             num_processes=cfg.mesh.num_processes or None,
             process_id=(cfg.mesh.process_id
-                        if cfg.mesh.process_id >= 0 else None))
+                        if cfg.mesh.process_id >= 0 else None),
+            device=device)
         mesh = make_mesh(dp=cfg.mesh.dp, mp=cfg.mesh.mp, device=device)
         model = ShardedGibbsLDA(cfg.lda, corpus.n_vocab, mesh=mesh)
     else:

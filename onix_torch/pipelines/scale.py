@@ -27,9 +27,10 @@ score gathers and the exact bottom-k in PyTorch ops);
 trained vocabulary that does not fit the compact key returns the run to
 host words, as in the reference, and the manifest's `words_mode` says
 so. `fit_hosts > 1` fits in that many host-fabric worker processes
-(`parallel/hostfabric.py`, one card each: a host with fewer cards
-refuses), `rebalance` re-shards onto the survivors when one dies; the
-manifest's `orchestration.fit_fabric` is the fabric's manifest. The
+(`parallel/hostfabric.py`, one card each, their sums over NCCL; a host
+with fewer cards refuses), `rebalance` re-shards onto the survivors
+when one dies; the manifest's `orchestration.fit_fabric` is the
+fabric's manifest, its `backend` the one the workers' group ran. The
 in-process fit runs over every visible device of `device`'s type, as the
 reference's does, and the manifest's `mesh` and `devices` name them.
 `generator="sessions"` takes

@@ -42,9 +42,11 @@ from onix_torch.corpus import Corpus  # noqa: E402
 from onix_torch.models.lda_gibbs import LL_PARITY_BAND  # noqa: E402
 from onix_torch.models.scoring import score_all  # noqa: E402
 from onix_torch.parallel import hostfabric  # noqa: E402
-from onix_torch.parallel.mesh import make_mesh  # noqa: E402
+from onix_torch.parallel.mesh import (collective_backend,  # noqa: E402
+                                      make_mesh)
 from onix_torch.parallel.sharded_gibbs import ShardedGibbsLDA  # noqa: E402
 from onix_torch.utils.obs import counters  # noqa: E402
+from onix_torch.utils import telemetry  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -89,6 +91,10 @@ def test_two_workers_equal_the_in_process_mesh(corpus, tmp_path):
     assert_bit_identical(ref, out)
     assert out["ll_history"] == ref["ll_history"]
     m = out["manifest"]
+    # The spec's backend is the coordinator's derivation, the
+    # manifest's the one the workers' process group ran.
+    spec = json.loads((tmp_path / "fabric" / "fabric.json").read_text())
+    assert spec["backend"] == "gloo"
     assert (m["device"], m["backend"]) == ("cpu", "gloo")
     assert m["generations"] == 1 and not m["deaths"]
     assert m["k1_launches"] == [0, 0]       # CPU: K1's plain version
@@ -101,6 +107,9 @@ def test_sigkill_quarantine_resume_sync_bitidentical(corpus, tmp_path,
     tel = tmp_path / "tel"
     tel.mkdir()
     monkeypatch.setenv("ONIX_TELEMETRY_DIR", str(tel))
+    # The flight recorder is the process's: earlier tests in this worker
+    # may have spent its dump budget or pointed it at their own folder.
+    telemetry.reset_for_tests()
     before = {k: counters.get(f"host.{k}") for k in
               ("death_detected", "quarantined", "kill_delivered",
                "restarts")}
@@ -203,6 +212,85 @@ def test_rebalance_on_death(tmp_path):
     hits_ref, hits_fab = hits(ref), hits(out)
     assert hits_ref > 0 and hits_fab > 0, (hits_ref, hits_fab)
     assert abs(hits_fab - hits_ref) <= 3, (hits_ref, hits_fab)
+
+
+@pytest.mark.parametrize("device,placements,backend", [
+    ("cpu", None, "gloo"),
+    ("cpu", ["0", "1"], "gloo"),
+    ("cuda", ["0", "1"], "nccl"),
+    ("cuda", ["0,1", "2,3"], "nccl"),
+    ("cuda", ["0", "0"], "gloo"),
+    ("cuda", ["0,1", "2", "1"], "gloo"),
+    ("cuda", None, "nccl"),
+], ids=["cpu", "cpu-named", "cards", "two-cards-a-rank", "shared",
+        "mix", "operator-hosts"])
+def test_placement_gives_the_backend(device, placements, backend):
+    # The reference keeps collectives on the device where each worker
+    # owns its chips and routes CPU collectives over gloo; NCCL refuses
+    # one card twice in a communicator, so shared cards take gloo.
+    assert collective_backend(device, placements) == backend
+
+
+def test_placement_of_another_device_type_raises():
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        collective_backend("mps", None)
+
+
+@pytest.mark.parametrize("device,cards,backend", [
+    ("cpu", None, "gloo"),
+    ("cuda", ("0", "0"), "gloo"),
+    ("cuda", ("0", "1"), "nccl"),
+], ids=["cpu", "shared-card", "card-a-worker"])
+def test_coordinator_writes_the_derived_backend(corpus, tmp_path, device,
+                                                cards, backend):
+    # The spec carries the backend the workers' placement implies; no
+    # setting chooses it.
+    env = ({} if cards is None else
+           {i: {"CUDA_VISIBLE_DEVICES": c} for i, c in enumerate(cards)})
+    coord = hostfabric.FabricCoordinator(
+        corpus, CFG, tmp_path, worker_env=env,
+        **{**FABRIC_KW, "device": device})
+    coord._write_generation("fp", -1)
+    spec = json.loads((tmp_path / "fabric.json").read_text())
+    assert (spec["device"], spec["backend"]) == (device, backend)
+    # torch's watchdog must leave a dead peer to the fabric's deadline.
+    deadline = FABRIC_KW["collective_deadline_s"]
+    assert hostfabric.group_timeout_s(deadline) > deadline
+
+
+class _Work:
+    """An all-reduce's work handle that completes after `polls` looks
+    and then fails its wait."""
+
+    def __init__(self, polls):
+        self.polls = polls
+        self.looks = 0
+
+    def is_completed(self):
+        self.looks += 1
+        return self.looks > self.polls
+
+    def wait(self):
+        raise RuntimeError("peer closed the connection")
+
+
+@pytest.mark.parametrize("backend,error", [
+    ("gloo", hostfabric.CollectiveFailed),
+    ("nccl", hostfabric.HostPeerDead),
+])
+def test_deadline_wait_blocks_on_nccl_and_never_retries_it(tmp_path,
+                                                           backend, error):
+    # NCCL's work.wait() only orders the stream: the wait polls the work
+    # until it has completed. A failed gloo all-reduce is the retry's
+    # trigger; a failed NCCL one ends the worker's collectives.
+    hb = hostfabric.HeartbeatWriter(tmp_path / "hb.json", 0, 0.3)
+    work = _Work(polls=3)
+    with pytest.raises(error, match="peer closed"):
+        hostfabric._wait_with_deadline(60.0, hb, backend)(work)
+    assert work.looks == (4 if backend == "nccl" else 0)
+    if backend == "nccl":
+        assert json.loads((tmp_path / "hb.json").read_text())[
+            "status"] == "peer-dead"
 
 
 def test_fabric_fingerprint_refuses_host_resplit(corpus):

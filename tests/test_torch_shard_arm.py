@@ -16,6 +16,11 @@ within 1e-4 relative.
 """
 
 import json
+import os
+import pathlib
+import socket
+import subprocess
+import sys
 
 import pytest
 
@@ -43,6 +48,7 @@ from onix_torch.parallel import sharded_gibbs as tsg  # noqa: E402
 from tests.test_torch_sharded import ShardedReplayNoise  # noqa: E402
 
 K, N_SWEEPS, BURN_IN, BLOCK, SEED = 6, 3, 1, 256, 3
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(autouse=True)
@@ -249,6 +255,82 @@ def test_device_groups_give_the_one_group_fit(corpus, merge):
             assert torch.equal(getattr(split["state"], name),
                                getattr(base["state"], name)), name
         assert split["ll_history"] == base["ll_history"]
+
+
+# One rank of a two-process gloo group: its positions (one row of the
+# mp axis) on two indexed CPU devices, so it folds between its devices
+# first and then all-reduces across the ranks.
+RANK_SCRIPT = """
+import sys
+import numpy as np
+import torch
+from onix_torch.config import LDAConfig
+from onix_torch.corpus import Corpus
+from onix_torch.parallel import mesh, sharded_gibbs
+torch.set_num_threads(1)
+coord, rank, merge, src, out = sys.argv[1:]
+mesh.multihost_init(coord, 2, int(rank), init_timeout_s=60, device="cpu")
+with np.load(src) as z:
+    corpus = Corpus(z["doc_ids"], z["word_ids"], int(z["n_docs"]),
+                    int(z["n_vocab"]))
+cfg = LDAConfig(n_topics=%d, n_sweeps=%d, burn_in=%d, block_size=%d,
+                seed=%d, n_chains=2, merge_form=merge, merge_staleness=1,
+                sync_splits=2)
+model = sharded_gibbs.ShardedGibbsLDA(
+    cfg, corpus.n_vocab, mesh=mesh.make_mesh(2, 2, devices=["cpu:0",
+                                                            "cpu:1"]),
+    sampler="race")
+assert len(model._groups) == 2 and model.backend == "gloo"
+fit = model.fit(corpus)
+st = fit["state"]
+np.savez(out, theta=fit["theta"], phi_wk=fit["phi_wk"],
+         ll=np.asarray([v for _, v in fit["ll_history"]]),
+         **{k: getattr(st, k).numpy() for k in
+            ("z", "n_dk", "n_wk", "n_k", "acc_ndk", "acc_nwk")})
+mesh.multihost_shutdown()
+""" % (K, N_SWEEPS, BURN_IN, BLOCK, SEED)
+
+
+@pytest.mark.parametrize("merge", ["sync", "async"])
+def test_a_rank_of_two_devices_in_a_gloo_group(corpus, merge, tmp_path):
+    # Two processes of two devices each against the one-process,
+    # one-device fit of the same dp 2 x mp 2 mesh: every rank's rows,
+    # the replicated tables, θ, φ_wk and the ll history bit for bit.
+    cfg = config(LDAConfig, n_chains=2, merge_form=merge, merge_staleness=1,
+                 sync_splits=2)
+    ref = tsg.ShardedGibbsLDA(cfg, corpus.n_vocab,
+                              mesh=tmesh.make_mesh(2, 2, devices=["cpu"] * 4),
+                              sampler="race").fit(port_corpus(corpus))
+    src = tmp_path / "corpus.npz"
+    np.savez(src, doc_ids=corpus.doc_ids, word_ids=corpus.word_ids,
+             n_docs=corpus.n_docs, n_vocab=corpus.n_vocab)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{sock.getsockname()[1]}"
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RANK_SCRIPT, coord, str(r), merge, str(src),
+         str(tmp_path / f"rank{r}.npz")], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in (0, 1)]
+    try:
+        logs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0, 0], logs
+    st = ref["state"]
+    for r in (0, 1):
+        with np.load(tmp_path / f"rank{r}.npz") as got:
+            for name in ("z", "n_dk", "acc_ndk"):
+                np.testing.assert_array_equal(
+                    got[name], getattr(st, name).numpy()[r:r + 1], name)
+            for name in ("n_wk", "n_k", "acc_nwk"):
+                np.testing.assert_array_equal(
+                    got[name], getattr(st, name).numpy(), name)
+            np.testing.assert_array_equal(got["theta"], ref["theta"])
+            np.testing.assert_array_equal(got["phi_wk"], ref["phi_wk"])
+            assert got["ll"].tolist() == [v for _, v in ref["ll_history"]]
 
 
 def test_position_noise_is_independent_of_placement():

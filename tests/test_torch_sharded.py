@@ -352,11 +352,18 @@ def test_meshes_beyond_one_device_raise(dp, mp):
 
 @pytest.mark.parametrize("kw", [dict(coordinator="localhost:1234",
                                      num_processes=2),
-                                dict(num_processes=2)])
+                                dict(num_processes=2),
+                                dict(coordinator="localhost:1234",
+                                     num_processes=2, process_id=0,
+                                     device="cpu", backend="nccl"),
+                                dict(coordinator="localhost:1234",
+                                     num_processes=2, process_id=0,
+                                     device="cpu", backend="mpi")])
 def test_multihost_init_raises(kw):
     # A bad explicit configuration raises before any process group
-    # starts; with no arguments and no cluster environment it is the
-    # solo no-op.
+    # starts (NCCL needs the rank's card: a CPU placement runs gloo);
+    # with no arguments and no cluster environment it is the solo
+    # no-op.
     with pytest.raises(ValueError):
         tmesh.multihost_init(**kw)
     assert tmesh.multihost_init() is False
